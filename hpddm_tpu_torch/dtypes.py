@@ -1,0 +1,50 @@
+"""Scalar type helpers (counterpart of ``hpddm_tpu/dtypes.py``).
+
+Torch dtypes throughout; numpy dtypes are accepted where a caller hands
+host data over (``as_torch_dtype``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_TO_TORCH = {
+    np.dtype(np.float32): torch.float32,
+    np.dtype(np.float64): torch.float64,
+    np.dtype(np.complex64): torch.complex64,
+    np.dtype(np.complex128): torch.complex128,
+}
+
+
+def as_torch_dtype(dtype) -> torch.dtype:
+    """A torch dtype from a torch dtype, a numpy dtype or a numpy type."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return _TO_TORCH[np.dtype(dtype)]
+
+
+def underlying(dtype) -> torch.dtype:
+    """Real type underlying a (possibly complex) scalar type."""
+    dtype = as_torch_dtype(dtype)
+    if dtype == torch.complex64:
+        return torch.float32
+    if dtype == torch.complex128:
+        return torch.float64
+    return dtype
+
+
+def is_low_precision(dtype) -> bool:
+    """Below f64: setup-time factorizations are computed in f64 and rounded
+    once (``local_solve.py``, ``geneo.py`` and the coarse inverse)."""
+    return as_torch_dtype(dtype) in (torch.float32, torch.bfloat16,
+                                     torch.float16)
+
+
+def machine_eps(dtype) -> float:
+    return float(torch.finfo(underlying(dtype)).eps)
+
+
+# Dirichlet-penalty constants (HPDDM_define.hpp:47-48).
+HPDDM_EPS = 1.0e-12
+HPDDM_PEN = 1.0e+30

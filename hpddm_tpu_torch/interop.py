@@ -1,0 +1,77 @@
+"""Carry a JAX-built preconditioner state into the port.
+
+``state_from_numpy`` builds the port's ``SchwarzState`` from the arrays of
+a ``hpddm_tpu`` ``SchwarzState`` that the caller has flattened to numpy, so
+that the port's runtime (``gmv``, ``apply``, GMRES) can be held against the
+JAX runtime on identical operators, independently of the port's own setup.
+This module imports no JAX: the caller does the extraction.
+
+Keys of ``arrays`` (numpy arrays unless stated):
+
+* decomposition: ``n_loc``, ``d``, ``if_idx``, ``if_gid``, ``if_mask``,
+  ``ov_mask``, ``mult``, ``partners``, ``inv_map``, ``is_if``; ints
+  ``S``, ``n_max``, ``m_max``, ``n_if``, ``n_global``, ``k_max``; tuple
+  ``sub_shifts`` (optional);
+* local matrices (DIA): ``A_values`` (S, nd, n_max), ``A_offsets`` (tuple);
+* local solver (``inv``): ``factor`` (S, n_max, n_max);
+* coarse space (optional; absent for one level): ``Z``, ``E_inv``,
+  ``nu_loc``; int ``nu_max``; str ``correction``;
+* ``variant`` (str) and ``bc`` (array or None).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from hpddm_tpu_torch.core.formats import BatchedDIA
+from hpddm_tpu_torch.dtypes import as_torch_dtype
+from hpddm_tpu_torch.ops.local_solve import LocalSolver
+from hpddm_tpu_torch.parallel.decomposition import Decomposition
+from hpddm_tpu_torch.precond.schwarz import CoarseState, SchwarzState
+
+DEC_INT_KEYS = ("S", "n_max", "m_max", "n_if", "n_global", "k_max")
+
+
+def state_from_numpy(arrays: Dict[str, Any], device="cpu",
+                     dtype=torch.float64) -> SchwarzState:
+    """A port ``SchwarzState`` on ``device`` whose floating tensors are in
+    ``dtype`` and whose index tensors are int64."""
+    dtype = as_torch_dtype(dtype)
+
+    def t(key, dt):
+        # a copy: the arrays of a JAX state are read-only views
+        return torch.as_tensor(np.array(arrays[key]), device=device).to(dt)
+
+    def f(key):
+        return t(key, dtype)
+
+    def i(key):
+        return t(key, torch.int64)
+
+    def b(key):
+        return t(key, torch.bool)
+
+    dec = Decomposition(
+        n_loc=t("n_loc", torch.int32),
+        d=f("d"), if_idx=i("if_idx"), if_gid=i("if_gid"),
+        if_mask=b("if_mask"), ov_mask=b("ov_mask"), mult=f("mult"),
+        partners=i("partners"), inv_map=i("inv_map"), is_if=b("is_if"),
+        sub_shifts=tuple(arrays.get("sub_shifts", ())),
+        **{k: int(arrays[k]) for k in DEC_INT_KEYS})
+    A = BatchedDIA(values=f("A_values").contiguous(),
+                   offsets=tuple(int(o) for o in arrays["A_offsets"]),
+                   n_max=int(arrays["n_max"]))
+    coarse = None
+    if arrays.get("Z") is not None:
+        coarse = CoarseState(
+            Z=f("Z"), E_inv=f("E_inv"),
+            nu_loc=t("nu_loc", torch.int32),
+            nu_max=int(arrays["nu_max"]), correction=str(arrays["correction"]))
+    bc = arrays.get("bc")
+    return SchwarzState(
+        dec=dec, A=A, solver=LocalSolver(kind="inv", factor=f("factor")),
+        coarse=coarse, variant=str(arrays["variant"]),
+        bc=None if bc is None else f("bc"))

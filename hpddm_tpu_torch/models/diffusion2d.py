@@ -1,0 +1,258 @@
+"""2D diffusion test problem (counterpart of ``hpddm_tpu/models/diffusion2d.py``).
+
+``generate`` only, kept bit-faithful to the JAX package so that both
+packages see byte-equal problems: a 5-point finite-difference diffusion
+operator on an Nx x Ny grid of [0,10]^2, decomposed into an xGrid x yGrid
+process grid of overlapping subdomains with the reference's partition of
+unity, neighbor lists and elementwise-aligned mapping lists
+(examples/generate.cpp:43-311 of the reference).
+
+Quirks kept on purpose (iteration-count parity with the in-tree oracles
+depends on them):
+
+* the vertical stencil offset is ``Nx // xGrid`` even when the local row
+  width ``iEnd - iStart`` differs because of overlap clamping, which makes
+  some local matrices nonsymmetric (generate.cpp:201),
+* the Neumann matrices used by GenEO get the reference's boundary
+  adjustments (generate.cpp:249-301),
+* the right-hand side is the three-bump closed form (generate.cpp:72-88).
+
+Returns host-side numpy/MatrixCSR data; ``precond.schwarz.Schwarz`` moves
+it onto the device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+
+from hpddm_tpu_torch.core.csr import MatrixCSR
+
+PI = 3.141592653589793238463
+
+
+@dataclasses.dataclass
+class Generated:
+    """Per-subdomain host data for a decomposed problem."""
+    mats: List[MatrixCSR]                  # local matrices
+    neumann: Optional[List[MatrixCSR]]     # local Neumann matrices (or None)
+    neighbors: List[List[int]]             # neighbor subdomain ids
+    mappings: List[List[np.ndarray]]       # aligned shared-dof lists
+    d: List[np.ndarray]                    # partition of unity
+    f: List[np.ndarray]                    # right-hand side(s), (ndof, mu)
+    n_loc: List[int]
+    grid: tuple                            # (xGrid, yGrid, Nx, Ny, overlap)
+    boxes: List[tuple]                     # (iStart, iEnd, jStart, jEnd)
+
+
+def _grid_of(size_world: int) -> tuple:
+    x_grid = int(np.sqrt(size_world))
+    while size_world % x_grid != 0:
+        x_grid -= 1
+    return x_grid, size_world // x_grid
+
+
+def rhs_values(ii: np.ndarray, jj: np.ndarray, Nx: int, Ny: int) -> np.ndarray:
+    """Closed-form RHS (generate.cpp:72-88) at grid indices (ii, jj)."""
+    dx, dy = 10.0 / Nx, 10.0 / Ny
+    xx = dx * (ii + 0.5)
+    yy = dy * (jj + 0.5)
+    frs = np.ones_like(xx, dtype=np.float64)
+    for xsc, ysc, rsc, asc in ((6.5, 8.0, 0.3, 0.3),
+                               (2.0, 7.0, 0.3, 0.2),
+                               (7.0, 3.0, 0.4, -0.1)):
+        xdist, ydist = xx - xsc, yy - ysc
+        inside = np.sqrt(xdist ** 2 + ydist ** 2) <= rsc
+        contrib = asc * np.cos(0.5 * PI * xdist / rsc) * np.cos(0.5 * PI * ydist / rsc)
+        frs = frs - np.where(inside, contrib, 0.0)
+    return frs
+
+
+def generate(size_world: int, Nx: int = 100, Ny: int = 100, overlap: int = 1,
+             sym: bool = False, mu: int = 0, with_neumann: bool = False,
+             rng: Optional[np.random.Generator] = None,
+             dtype=np.float64) -> Generated:
+    """Generate the decomposed 2D diffusion problem for `size_world` subdomains.
+
+    mu = 0: single closed-form RHS (returned as (ndof, 1));
+    mu > 0: mu random RHS (generate_random_rhs).
+    """
+    x_grid, y_grid = _grid_of(size_world)
+    dx, dy = 10.0 / Nx, 10.0 / Ny
+    idy2, idx2 = 1.0 / (dy * dy), 1.0 / (dx * dx)
+    if rng is None:
+        rng = np.random.default_rng(0)
+
+    out = Generated([], [] if with_neumann else None, [], [], [], [], [],
+                    (x_grid, y_grid, Nx, Ny, overlap), [])
+
+    for rank in range(size_world):
+        y, x = divmod(rank, x_grid)
+        i_start = max(x * (Nx // x_grid) - overlap, 0)
+        i_end = min((x + 1) * (Nx // x_grid) + overlap, Nx)
+        j_start = max(y * (Ny // y_grid) - overlap, 0)
+        j_end = min((y + 1) * (Ny // y_grid) + overlap, Ny)
+        wx, wy = i_end - i_start, j_end - j_start
+        ndof = wx * wy
+        out.boxes.append((i_start, i_end, j_start, j_end))
+        out.n_loc.append(ndof)
+
+        # -- RHS ---------------------------------------------------------
+        if mu == 0:
+            jj, ii = np.meshgrid(np.arange(j_start, j_end),
+                                 np.arange(i_start, i_end), indexing="ij")
+            f = rhs_values(ii, jj, Nx, Ny).reshape(ndof, 1).astype(dtype)
+        else:
+            f = rng.uniform(0.0, 1.0, size=(ndof, mu)).astype(dtype)
+        out.f.append(f)
+
+        # -- partition of unity & neighbor lists --------------------------
+        d = np.ones(ndof, dtype=np.float64)
+        o: List[int] = []
+        maps: List[np.ndarray] = []
+        ov = overlap
+
+        def block(rows, cols):
+            """Local indices for (local-row, local-col) index arrays, row-major."""
+            r, c = np.meshgrid(rows, cols, indexing="ij")
+            return (c + wx * r).ravel()
+
+        if j_start != 0:
+            if i_start != 0:
+                o.append(rank - x_grid - 1)
+                maps.append(block(np.arange(2 * ov), np.arange(2 * ov)))
+                for j in range(ov):
+                    for i in range(ov - j):
+                        d[i + j + j * wx] = j / ov
+                    for i in range(j):
+                        d[i + j * wx] = i / ov
+            else:
+                for j in range(ov):
+                    d[j * wx: j * wx + ov] = j / ov
+            o.append(rank - x_grid)
+            maps.append(block(np.arange(2 * ov), np.arange(wx)))
+            for j in range(ov):
+                d[ov + j * wx: wx - ov + j * wx] = j / ov
+            if i_end != Nx:
+                o.append(rank - x_grid + 1)
+                # bottom-right corner: enumerated row-outer like the reference
+                idx = np.array([wx * (i + 1) - 2 * ov + j
+                                for i in range(2 * ov) for j in range(2 * ov)])
+                maps.append(idx)
+                for j in range(ov):
+                    for i in range(ov - j):
+                        d[wx * (j + 1) - ov + i] = j / ov
+                    for i in range(j):
+                        d[wx * (j + 1) - i - 1] = i / ov
+            else:
+                for j in range(ov):
+                    d[wx * (j + 1) - ov: wx * (j + 1)] = j / ov
+        if i_start != 0:
+            o.append(rank - 1)
+            maps.append(block(np.arange(wy), np.arange(2 * ov)))
+            for i in range(j_start + (j_start != 0) * ov,
+                           j_end - (j_end != Ny) * ov):
+                for j in range(ov):
+                    d[j + (i - j_start) * wx] = j / ov
+        if i_end != Nx:
+            o.append(rank + 1)
+            maps.append(block(np.arange(wy), np.arange(wx - 2 * ov, wx)))
+            for i in range(j_start + (j_start != 0) * ov,
+                           j_end - (j_end != Ny) * ov):
+                for j in range(ov):
+                    d[wx * (i + 1 - j_start) - j - 1] = j / ov
+        if j_end != Ny:
+            base = ndof - 2 * ov * wx
+            top = ndof - ov * wx
+            if i_start != 0:
+                o.append(rank + x_grid - 1)
+                maps.append(base + block(np.arange(2 * ov), np.arange(2 * ov)))
+                for j in range(ov):
+                    for i in range(ov - j):
+                        d[top + i + wx * j] = i / ov
+                    for i in range(ov - j, ov):
+                        d[top + i + wx * j] = (ov - 1 - j) / ov
+            else:
+                for j in range(ov):
+                    d[top + wx * j: top + wx * j + ov] = (ov - j - 1) / ov
+            o.append(rank + x_grid)
+            maps.append(base + block(np.arange(2 * ov), np.arange(wx)))
+            for j in range(ov):
+                d[top + ov + wx * j: top + wx - ov + wx * j] = (ov - 1 - j) / ov
+            if i_end != Nx:
+                o.append(rank + x_grid + 1)
+                maps.append(base + (wx - 2 * ov)
+                            + block(np.arange(2 * ov), np.arange(2 * ov)))
+                for j in range(ov):
+                    for i in range(j, ov):
+                        d[top + i + wx * (j + 1) - ov] = (ov - 1 - i) / ov
+                    for i in range(j):
+                        d[top + i + wx * (j + 1) - ov] = (ov - 1 - j) / ov
+            else:
+                for j in range(ov):
+                    d[top + wx * (j + 1) - ov: top + wx * (j + 1)] = (ov - j - 1) / ov
+        out.neighbors.append(o)
+        out.mappings.append(maps)
+        out.d.append(d)
+
+        # -- matrix --------------------------------------------------------
+        voff = Nx // x_grid  # reference quirk: vertical offset, not wx
+        jj, ii = np.meshgrid(np.arange(j_start, j_end),
+                             np.arange(i_start, i_end), indexing="ij")
+        jj, ii = jj.ravel(), ii.ravel()
+        k = np.arange(ndof)
+        diag_val = 2.0 * idx2 + 2.0 * idy2
+
+        rows, cols, vals = [], [], []
+
+        def add(mask, col, val):
+            rows.append(k[mask])
+            cols.append(col[mask])
+            vals.append(np.full(mask.sum(), val))
+
+        add(jj > j_start, k - voff, -idy2)
+        add(ii > i_start, k - 1, -idx2)
+        add(np.ones(ndof, dtype=bool), k, diag_val)
+        if not sym:
+            add(ii < i_end - 1, k + 1, -idx2)
+            add(jj < j_end - 1, k + voff, -idy2)
+        rows_c = np.concatenate(rows)
+        cols_c = np.concatenate(cols)
+        vals_c = np.concatenate(vals).astype(dtype)
+        # guard the quirky vertical offset against out-of-range columns
+        keep = (cols_c >= 0) & (cols_c < ndof)
+        mat = MatrixCSR.from_coo(ndof, ndof, rows_c[keep], cols_c[keep],
+                                 vals_c[keep], sym=sym)
+        out.mats.append(mat)
+
+        # -- Neumann matrix (GenEO) ---------------------------------------
+        if with_neumann:
+            nrows, ncols, nvals = [], [], []
+
+            def addn(mask, col, val):
+                nrows.append(k[mask])
+                ncols.append(col[mask])
+                nvals.append(val[mask] if isinstance(val, np.ndarray)
+                             else np.full(mask.sum(), val))
+
+            # generate.cpp:249-301 (non-sym variant, applied for both since we
+            # expand symmetric storage anyway)
+            v_down = np.where(ii == i_start, -idy2 - idx2, -idy2)
+            v_left = np.where(jj == j_start, -idx2 - idy2, -idx2)
+            v_right = np.where(jj == j_end - 1, -idx2 - idy2, -idx2)
+            v_up = np.where(ii == i_end - 1, -idy2 - idx2, -idy2)
+            addn(jj > j_start, k - voff, v_down)
+            addn(ii > i_start, k - 1, v_left)
+            addn(np.ones(ndof, dtype=bool), k, diag_val)
+            addn(ii < i_end - 1, k + 1, v_right)
+            addn(jj < j_end - 1, k + voff, v_up)
+            nrows_c = np.concatenate(nrows)
+            ncols_c = np.concatenate(ncols)
+            nvals_c = np.concatenate(nvals).astype(dtype)
+            keep = (ncols_c >= 0) & (ncols_c < ndof)
+            out.neumann.append(MatrixCSR.from_coo(
+                ndof, ndof, nrows_c[keep], ncols_c[keep], nvals_c[keep]))
+
+    return out

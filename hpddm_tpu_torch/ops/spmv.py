@@ -1,0 +1,39 @@
+"""Batched local sparse matrix products (counterpart of ``hpddm_tpu/ops/spmv.py``).
+
+* DIA: shifted multiply-adds over the diagonals. A single right-hand side
+  on a CUDA tensor goes through the hand-written kernel (ops/dia_spmv.py),
+  as the JAX package sends it to its Pallas kernel
+  (``hpddm_tpu/ops/spmv.py:210-219``); more right-hand sides take the plain
+  version until the multi-RHS kernel is ported (ROADMAP queue B, B2).
+* Dense: a batched matmul.
+
+All operate on a batch x: (S, n_max, mu).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from hpddm_tpu_torch.core.formats import BatchedDense, BatchedDIA
+from hpddm_tpu_torch.ops.dia_spmv import dia_spmv, dia_spmv_reference
+
+
+def spmm_dia(A: BatchedDIA, x: torch.Tensor) -> torch.Tensor:
+    """Plain version: y[s, i, :] = sum_k vals[s, k, i] * x[s, i + off_k, :]."""
+    return dia_spmv_reference(A.values, x, A.offsets)
+
+
+def spmm_dense(A: BatchedDense, x: torch.Tensor) -> torch.Tensor:
+    return torch.bmm(A.values, x)
+
+
+def spmm(A, x: torch.Tensor) -> torch.Tensor:
+    """Dispatch on format. x: (S, n_max, mu) -> (S, n_max, mu)."""
+    if isinstance(A, BatchedDIA):
+        if x.shape[-1] == 1:
+            y = dia_spmv(A.values, x[:, :, 0].contiguous(), A.offsets)
+            return y[:, :, None]
+        return spmm_dia(A, x)
+    if isinstance(A, BatchedDense):
+        return spmm_dense(A, x)
+    raise TypeError(f"unsupported matrix type {type(A)}")

@@ -1,0 +1,454 @@
+"""One- and two-level overlapping Schwarz preconditioners, main-path slice.
+
+Counterpart of ``hpddm_tpu/precond/schwarz.py``. The preconditioner state
+is a small dataclass of batched tensors (leading axis = subdomains) and the
+runtime methods are plain functions over it:
+
+* ``apply``: M^-1 with the variants RAS/ASM/ORAS/SORAS/none
+  (HPDDM_schwarz.hpp:527-612) and the deflated/additive/balanced coarse
+  corrections,
+* ``gmv``: global SpMV = local SpMM + POU-scaled sum-exchange
+  (HPDDM_schwarz.hpp:726-747),
+* ``deflation``: coarse correction Z E^-1 Z^T D (HPDDM_schwarz.hpp:
+  1602-1622) with a replicated, direct (inverted) coarse matrix
+  E = Z^T A Z,
+* ``compute_residual``: independent residual recomputation
+  (HPDDM_schwarz.hpp:761-803).
+
+``Schwarz`` is the setup: decomposition, DIA packing, GenEO (dense pencil),
+``inv`` local factors and the dense Galerkin coarse operator. The other
+setup branches of the JAX package (block-sparse and multilevel coarse
+operators, banded/FFT/Chebyshev local solvers, Lanczos GenEO, the grid
+canvas) raise ``NotImplementedError`` naming their slice in ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+from hpddm_tpu_torch.core.csr import MatrixCSR
+from hpddm_tpu_torch.core.formats import (batched_dense_from,
+                                          pack_local_matrices)
+from hpddm_tpu_torch.dtypes import HPDDM_EPS, HPDDM_PEN, as_torch_dtype
+from hpddm_tpu_torch.ops.local_solve import LocalSolver, invert
+from hpddm_tpu_torch.ops.spmv import spmm
+from hpddm_tpu_torch.options import Options
+from hpddm_tpu_torch.parallel.decomposition import Decomposition
+from hpddm_tpu_torch.parallel.ops import exchange, scaled_exchange
+
+# dense Galerkin assembly memory cap: above it the JAX package switches to
+# the block-sparse coarse operator, which this slice does not have
+_DENSE_COARSE_BYTES_CAP = 2 << 30
+
+
+def _not_ported(what: str, where: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to hpddm_tpu_torch yet ({where})")
+
+
+@dataclasses.dataclass(frozen=True)
+class CoarseState:
+    """Two-level coarse-space state with a replicated direct coarse solve
+    (the analogue of a main-process direct factorization,
+    HPDDM_coarse_operator_impl.hpp:1630)."""
+    Z: torch.Tensor               # (S, n_max, nu_max) local deflation vectors
+    E_inv: torch.Tensor           # (N_c, N_c) inverse of E = Z^T A Z
+    nu_loc: torch.Tensor          # (S,) int32, actual nu per subdomain
+    nu_max: int
+    correction: str               # 'deflated' | 'additive' | 'balanced'
+    mode: str = "direct"
+
+
+@dataclasses.dataclass(frozen=True)
+class SchwarzState:
+    dec: Decomposition
+    A: object                     # batched local matrices (BatchedDIA/Dense)
+    solver: LocalSolver
+    coarse: Optional[CoarseState]
+    variant: str                  # 'ras' | 'asm' | 'oras' | 'soras' | 'osm' | 'none'
+    # Dirichlet boundary-condition values per row (Subdomain::boundaryCond,
+    # HPDDM_subdomain.hpp:310-336): a_ii on detected boundary rows, 0
+    # elsewhere; None when there are none. `start` seeds x0 from it.
+    bc: Optional[torch.Tensor] = None
+
+
+# ----------------------------------------------------------------------
+# Runtime (plain functions over SchwarzState)
+# ----------------------------------------------------------------------
+
+def gmv(state: SchwarzState, x: torch.Tensor) -> torch.Tensor:
+    """Global SpMV on a consistent input: local SpMM then scaled exchange.
+
+    Correct because the POU vanishes on each subdomain's artificial
+    boundary, exactly where the local rows are incomplete
+    (HPDDM_schwarz.hpp:726-747)."""
+    return scaled_exchange(state.dec, spmm(state.A, x))
+
+
+def one_level_apply(state: SchwarzState, x: torch.Tensor) -> torch.Tensor:
+    """One-level M^-1 (HPDDM_schwarz.hpp:532-546)."""
+    dec = state.dec
+    v = state.variant
+    if v == "none":
+        return x
+    if v in ("ras", "oras"):
+        return scaled_exchange(dec, state.solver.solve(x))   # sum R^T D A^-1 x
+    if v == "soras":
+        out = state.solver.solve(dec.d[:, :, None] * x)
+        return exchange(dec, dec.d[:, :, None] * out)       # sum R^T D A^-1 D x
+    return exchange(dec, state.solver.solve(x))             # asm / osm
+
+
+def _coarse_solve(co: CoarseState, c: torch.Tensor) -> torch.Tensor:
+    """Solve E y = c on the replicated coarse problem: one small matmul
+    with the prefactorized inverse."""
+    if co.mode != "direct":
+        raise _not_ported(f"coarse mode {co.mode!r}",
+                          "ROADMAP queue A, slices 2 and 4")
+    return co.E_inv @ c.to(co.E_inv.dtype)
+
+
+def deflation(state: SchwarzState, x: torch.Tensor) -> torch.Tensor:
+    """Coarse correction out = Z E^-1 Z^T D x (HPDDM_schwarz.hpp:1602-1622)."""
+    co = state.coarse
+    dec = state.dec
+    mu = x.shape[-1]
+    dx = dec.d[:, :, None] * x                               # D x
+    # coarse RHS c[(s, a)] = Z_s[:, a]^T (D x)_s -> (S, nu, mu)
+    c = torch.bmm(co.Z.conj().transpose(1, 2), dx).reshape(-1, mu)
+    y = _coarse_solve(co, c).to(x.dtype)                     # (N_c, mu)
+    y = y.reshape(-1, co.nu_max, mu)                         # (S, nu, mu)
+    return scaled_exchange(dec, torch.bmm(co.Z, y))          # Z y
+
+
+def start(state: SchwarzState, b: torch.Tensor,
+          x0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Initial guess with Dirichlet rows seeded exactly (Schwarz::start,
+    HPDDM_schwarz.hpp:496-514): x_i = b_i / a_ii on detected boundary rows,
+    then one scaled exchange. Identity when no boundary rows exist."""
+    x = torch.zeros_like(b) if x0 is None else x0
+    bc = state.bc
+    if bc is None:
+        return x
+    mask = torch.abs(bc) > HPDDM_EPS
+    seed = b / torch.where(mask, bc, torch.ones_like(bc)).to(b.dtype)[:, :, None]
+    x = torch.where(mask[:, :, None], seed, x)
+    return scaled_exchange(state.dec, x)
+
+
+def apply(state: SchwarzState, x: torch.Tensor) -> torch.Tensor:
+    """Full preconditioner apply (HPDDM_schwarz.hpp:527-612), with the JAX
+    package's branches: the additive correction with asm/osm uses the
+    unscaled exchange; deflated/balanced end with the scaled one."""
+    if state.coarse is None:
+        return one_level_apply(state, x)
+    dec = state.dec
+    corr = state.coarse.correction
+    if corr == "additive":
+        out = deflation(state, x)
+        work = state.solver.solve(x)
+        if state.variant in ("asm", "osm"):
+            return out + exchange(dec, work)
+        return out + scaled_exchange(dec, work)
+    # deflated / balanced (HPDDM_schwarz.hpp:572-608)
+    out = deflation(state, x)                                # Z E^-1 Z^T D x
+    work = x - gmv(state, out)                               # (I - A Z E^-1 Z^T D) x
+    if state.variant == "soras":
+        work = dec.d[:, :, None] * work
+    work = scaled_exchange(dec, state.solver.solve(work))    # D A_loc^-1 (...)
+    if corr == "balanced":
+        work = work - deflation(state, gmv(state, work))
+    return out + work
+
+
+def compute_residual(state: SchwarzState, x: torch.Tensor, f: torch.Tensor,
+                     norm: str = "l2"):
+    """Independent residual recomputation (HPDDM_schwarz.hpp:761-803).
+
+    Returns (norm_b, norm_r) per RHS, POU-weighted so overlapping dofs
+    count once; Dirichlet-penalty rows are filtered like the reference."""
+    dec = state.dec
+    r = gmv(state, x) - f
+    w = dec.d[:, :, None]
+    f_eff = torch.where(torch.abs(f) > HPDDM_EPS * HPDDM_PEN, f / HPDDM_PEN, f)
+    if norm == "l2":
+        nr = torch.sum(w * torch.abs(r) ** 2, dim=(0, 1))
+        nb = torch.sum(w * torch.abs(f_eff) ** 2, dim=(0, 1))
+        return torch.sqrt(nb), torch.sqrt(nr)
+    if norm == "l1":
+        return (torch.sum(w * torch.abs(f_eff), dim=(0, 1)),
+                torch.sum(w * torch.abs(r), dim=(0, 1)))
+    return (torch.amax(torch.abs(f_eff), dim=(0, 1)),
+            torch.amax(torch.abs(r), dim=(0, 1)))
+
+
+# ----------------------------------------------------------------------
+# Setup
+# ----------------------------------------------------------------------
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class Schwarz:
+    """Setup: packs matrices, solves GenEO, factorizes, assembles the
+    coarse operator (examples/schwarz.cpp:90-127 of the reference:
+    Subdomain::initialize -> multiplicityScaling -> solveGEVP -> buildTwo ->
+    callNumfact).
+
+    ``timings`` holds the wall seconds of each setup phase run so far
+    ("geneo", "factorize", "coarse"), each ending in a device
+    synchronization.
+    """
+
+    def __init__(self, mats: Sequence[MatrixCSR],
+                 neighbors: Sequence[Sequence[int]],
+                 mappings: Sequence[Sequence[np.ndarray]],
+                 d: Optional[Sequence[np.ndarray]] = None,
+                 options: Optional[Options] = None,
+                 fmt: str = "auto",
+                 optimized_mats: Optional[Sequence[MatrixCSR]] = None,
+                 renumber: bool = False, prefix: str = "",
+                 device="cpu"):
+        if optimized_mats is not None:
+            raise _not_ported("optimized_mats (ORAS/SORAS user matrices)",
+                              "ROADMAP queue A, slice 5")
+        self.opt = options if options is not None else Options()
+        self.prefix = prefix
+        self.device = torch.device(device)
+        if self.opt.val("gmv_dtype") not in (None, "same"):
+            raise _not_ported("-hpddm_gmv_dtype", "ROADMAP queue B, cells")
+        n_loc = [m.n for m in mats]
+        dec_dt = np.float64 if not mats or np.iscomplexobj(
+            np.zeros(0, mats[0].dtype)) else np.dtype(mats[0].dtype).type
+        self.dec = Decomposition.from_subdomains(
+            neighbors, mappings, n_loc, d=d, renumber=renumber,
+            dtype=dec_dt, device=self.device)
+        self.mats = list(mats)
+        self.n_max = self.dec.n_max
+        self.A = pack_local_matrices(mats, n_max=self.n_max, fmt=fmt,
+                                     device=self.device)
+        self._deflation_vectors: Optional[List[np.ndarray]] = None
+        self.timings: Dict[str, float] = {}
+
+    def _timed(self, phase: str, t0: float) -> None:
+        _sync(self.device)
+        self.timings[phase] = time.perf_counter() - t0
+
+    def _boundary_conditions(self) -> Optional[torch.Tensor]:
+        """(S, n_max) Dirichlet-row diagonal values (0 elsewhere); None when
+        no boundary rows exist. Row i is a boundary row when its diagonal is
+        penalty-scale (>= HPDDM_EPS * HPDDM_PEN) or when its off-diagonals
+        vanish and the diagonal is ~1 (an eliminated identity row). A host
+        pass over the CSR matrices, once per build."""
+        bc = np.zeros((self.dec.S, self.n_max),
+                      dtype=np.asarray(self.mats[0].scipy().data).dtype)
+        found = False
+        for s, m in enumerate(self.mats):
+            csr = m.scipy(expand=True).tocsr()
+            n = csr.shape[0]
+            diag = np.asarray(csr.diagonal())
+            off = csr - sp.diags(diag)
+            off_max = np.abs(off).max(axis=1).toarray().ravel()
+            pen = np.abs(diag) >= HPDDM_EPS * HPDDM_PEN
+            iden = (off_max <= HPDDM_EPS) & (np.abs(diag - 1.0) <= HPDDM_EPS)
+            rows = pen | iden
+            if rows.any():
+                found = True
+                bc[s, :n][rows] = diag[rows]
+        return torch.as_tensor(bc, device=self.device) if found else None
+
+    # -- HPDDM-style hooks -------------------------------------------------
+    def set_vectors(self, vectors: Sequence[np.ndarray]) -> None:
+        """User deflation vectors (``setVectors``): vectors[s] is (n_s, nu_s)."""
+        self._deflation_vectors = [
+            np.atleast_2d(np.asarray(v)).reshape(self.mats[s].n, -1)
+            for s, v in enumerate(vectors)]
+
+    def solve_gevp(self, neumann: Sequence[MatrixCSR], nu=None,
+                   method: str = "auto",
+                   rng: Optional[np.random.Generator] = None) -> np.ndarray:
+        """GenEO: local pencil A_neu v = lambda (DAD|overlap) v
+        (``Schwarz::solveGEVP``, HPDDM_schwarz.hpp:665-715). The
+        smallest-lambda eigenvectors become the deflation vectors; returns
+        nu per subdomain.
+
+        nu: scalar or (S,) requested counts; defaults to -hpddm_geneo_nu.
+        rng: the generator of ``select_nu``'s padding vectors under
+        -hpddm_geneo_force_uniformity max (default: seeded with 42, as the
+        JAX package). ``neumann`` must be genuine SPSD local matrices.
+
+        The dense pencil runs one subdomain at a time, so the device holds
+        a few n_max^2 blocks, not S of them.
+        """
+        from hpddm_tpu_torch.precond.geneo import (scale_into_overlap,
+                                                   select_nu,
+                                                   solve_gevp_dense)
+        t0 = time.perf_counter()
+        opt = self.opt
+        pfx = self.prefix
+        S = self.dec.S
+        if nu is None:
+            nu = int(opt.val("geneo_nu", prefix=pfx))
+        nu_req = np.full(S, nu, dtype=np.int64) if np.isscalar(nu) \
+            else np.asarray(nu, dtype=np.int64)
+        nu_max_req = int(max(1, nu_req.max()))
+        threshold = opt.val("geneo_threshold", prefix=pfx)
+        if int(opt.val("geneo_estimate_nu", prefix=pfx) or 0):
+            raise _not_ported("-hpddm_geneo_estimate_nu",
+                              "ROADMAP queue A, slice 5")
+        if method == "auto":
+            method = "lanczos" if (self.n_max > 6000 or
+                                   opt.val("local_solver", prefix=pfx)
+                                   in ("fft", "dst_cheby", "banded")) \
+                else "dense"
+        if method != "dense":
+            raise _not_ported(f"GenEO method {method!r} (n_max={self.n_max})",
+                              "ROADMAP queue A, slice 2")
+        neu = pack_local_matrices(neumann, n_max=self.n_max, fmt="dia",
+                                  pad_identity=True, device=self.device)
+        lam_np = np.empty((S, nu_max_req))
+        V_np = np.empty((S, self.n_max, nu_max_req))
+        for s in range(S):
+            sub = slice(s, s + 1)
+            lam, V = solve_gevp_dense(batched_dense_from(neu, sub),
+                                      scale_into_overlap(self.A, self.dec,
+                                                         sub),
+                                      nu_max_req)
+            lam_np[s] = lam[0].cpu().numpy()
+            V_np[s] = V[0].cpu().numpy()
+        nu_loc, V_np = select_nu(
+            lam_np, nu_req,
+            threshold=float(threshold) if threshold is not None else None,
+            force_uniformity=opt.val("geneo_force_uniformity", prefix=pfx),
+            rng=rng if rng is not None else np.random.default_rng(42),
+            vectors=V_np)
+        self._deflation_vectors = [
+            np.ascontiguousarray(V_np[s, : self.mats[s].n, : int(nu_loc[s])])
+            for s in range(S)]
+        # HPDDM writes the attained count back into the option map
+        self.opt["geneo_nu"] = int(nu_loc.max(initial=1))
+        self._timed("geneo", t0)
+        return nu_loc
+
+    def build(self, dtype=None) -> SchwarzState:
+        """Factorize the local solvers and the coarse operator and return
+        the state (``callNumfact``, HPDDM_schwarz.hpp:337-368).
+
+        dtype: the factors' dtype; only the operator's own is ported (a
+        factor in another dtype needs flexible GMRES)."""
+        opt = self.opt
+        pfx = self.prefix
+        variant = opt.val("schwarz_method", prefix=pfx)
+        for key in ("reuse_preconditioner", "dump_matrices",
+                    "dump_eigenvectors"):
+            if opt.val(key):
+                raise _not_ported(f"-hpddm_{key}", "ROADMAP queue A, slice 5")
+        dt = self.A.values.dtype
+        if dtype is not None and as_torch_dtype(dtype) != dt:
+            raise _not_ported(f"factors in {as_torch_dtype(dtype)} for a "
+                              f"{dt} operator", "ROADMAP queue A, slice 4")
+        t0 = time.perf_counter()
+        kind = opt.val("local_solver", prefix=pfx)
+        if kind != "inv":
+            raise _not_ported(f"local_solver={kind!r}",
+                              "ROADMAP queue A, slices 2 and 5")
+        # one subdomain at a time: the dense copy of A_s lives only while
+        # its inverse is computed
+        factor = torch.empty((self.dec.S, self.n_max, self.n_max), dtype=dt,
+                             device=self.device)
+        for s in range(self.dec.S):
+            factor[s] = invert(batched_dense_from(self.A,
+                                                  slice(s, s + 1))[0].to(dt))
+        solver = LocalSolver(kind="inv", factor=factor)
+        self._timed("factorize", t0)
+
+        t0 = time.perf_counter()
+        coarse = None
+        correction = opt.val("schwarz_coarse_correction", prefix=pfx)
+        if correction is not None:
+            coarse = self._build_coarse(correction, dt)
+        self._timed("coarse", t0)
+
+        return SchwarzState(dec=self.dec, A=self.A, solver=solver,
+                            coarse=coarse, variant=variant,
+                            bc=self._boundary_conditions())
+
+    def exchange_rhs(self, f: torch.Tensor) -> torch.Tensor:
+        """Make a (possibly inconsistent) RHS consistent."""
+        return scaled_exchange(self.dec, f)
+
+    def _build_coarse(self, correction: str, dtype) -> CoarseState:
+        """Assemble E = Z^T A Z and invert it (replicated coarse solve).
+
+        Z columns: user vectors (set_vectors) or GenEO eigenvectors
+        (solve_gevp); the constant vector by default."""
+        opt = self.opt
+        lvl = opt.level(2)
+        if (opt.val("coarse_assembly") or "dense") != "dense":
+            raise _not_ported("coarse_assembly=bsr", "ROADMAP queue A, slice 2")
+        if "krylov_method" in lvl or opt.set("level_2_tol"):
+            raise _not_ported("iterative (level-2) coarse solves",
+                              "ROADMAP queue A, slice 4")
+        if lvl.val("dump_matrix"):
+            raise _not_ported("-hpddm_level_2_dump_matrix",
+                              "ROADMAP queue A, slice 5")
+        if opt.val("coarse_dtype") not in (None, "same"):
+            raise _not_ported("-hpddm_coarse_dtype", "ROADMAP queue A, slice 2")
+        dec = self.dec
+        S = dec.S
+        if self._deflation_vectors is None:
+            vecs = [np.ones((self.mats[s].n, 1)) for s in range(S)]
+        else:
+            vecs = self._deflation_vectors
+        nu_loc = np.array([v.shape[1] for v in vecs], dtype=np.int32)
+        nu_max = int(nu_loc.max(initial=1))
+        bytes_dense = S * self.n_max * S * nu_max * dtype.itemsize
+        if bytes_dense > _DENSE_COARSE_BYTES_CAP:
+            raise _not_ported(
+                f"a {bytes_dense / (1 << 30):.1f} GB dense Galerkin tensor "
+                "(the JAX package switches to the block-sparse coarse "
+                "operator)", "ROADMAP queue A, slice 2")
+        Z = np.zeros((S, self.n_max, nu_max), dtype=np.asarray(vecs[0]).dtype)
+        for s, v in enumerate(vecs):
+            Z[s, : v.shape[0], : v.shape[1]] = v
+        Z = torch.as_tensor(Z, device=self.device).to(dtype)
+        E = self._assemble_E(Z, nu_loc, nu_max)
+        return CoarseState(Z=Z, E_inv=invert(E),
+                           nu_loc=torch.as_tensor(nu_loc, device=self.device),
+                           nu_max=nu_max, correction=correction)
+
+    def _assemble_E(self, Z: torch.Tensor, nu_loc: np.ndarray,
+                    nu_max: int) -> torch.Tensor:
+        """E[(s,a),(q,b)] = (R_s^T D_s Z_s^a)^T A (R_q^T D_q Z_q^b).
+
+        X = exchange(D Z as global columns) gives every subdomain its
+        restriction of all coarse basis vectors; then
+        E = sum_s X_s^T D_s (A_s X_s), one matmul over the stacked rows."""
+        dec = self.dec
+        S, n, _ = Z.shape
+        N_c = S * nu_max
+        DZ = dec.d[:, :, None] * Z                           # (S, n, nu)
+        X0 = Z.new_zeros((S, n, N_c))                        # delta_{q,s} D_s Z_s
+        for s in range(S):
+            X0[s, :, s * nu_max:(s + 1) * nu_max] = DZ[s]
+        X = exchange(dec, X0)                                # consistent rep
+        del X0
+        Y = spmm(self.A, X)                                  # A_s X_s
+        Xd = X.conj() * dec.d[:, :, None]
+        del X
+        E = Xd.reshape(S * n, N_c).T @ Y.reshape(S * n, N_c)
+        # pad empty coarse slots (nonuniform nu) with identity
+        slot_active = (torch.arange(nu_max, device=Z.device)[None, :]
+                       < torch.as_tensor(nu_loc, device=Z.device)[:, None]
+                       ).reshape(-1)
+        keep = slot_active[:, None] & slot_active[None, :]
+        return torch.where(keep, E, torch.eye(N_c, dtype=E.dtype,
+                                              device=E.device))
