@@ -16,11 +16,29 @@ Phases (any failure exits non-zero before the last line is printed):
    CPU-f64 iteration counts (``ORACLE_ITS``); then the same run in f32;
 5. card scale: the main path at 512x512, S=64, overlap 1, nu=10, tol 1e-6,
    with setup phases, solve time, peak memory, kernel launch counts and
-   the time of one gmv through the kernel and through the plain version.
+   the time of one gmv through the kernel and through the plain version;
+6. kernels vs plain, slice 2: the ELL SpMV kernel (B4) and the one-pass
+   exchange kernel (B5) against their plain PyTorch versions on the card,
+   in f32 and f64, at the unstructured test size, at card size, at a
+   ragged n with an all-padding row, and at mu=3;
+7. unstructured parity: the P1-FEM path (60x60 Delaunay mesh, S=8,
+   overlap 2, k-way, GenEO nu=8, deflated, ELL) in f64 must take exactly
+   the JAX package's CPU-f64 iteration counts (``UNSTR_ITS``) on the card
+   and on this machine's CPU, with a true global residual <= 1e-6 at tol
+   1e-6; then one f32 run;
+8. unstructured card scale: 512x512 mesh, S=64, overlap 2, geometric
+   partition, nu=10, tol 1e-6, with setup phases, solve time, peak memory,
+   B4/B5 launch counts, B4 and B5 against their plain versions at mu=1
+   and at the coarse assembly's panel width (mu = coarse size), each
+   against torch.sparse.mm on the matrix of the same linear map, and one
+   gmv.
 
-It prints one JSON line with the kernels' results, the card's name and
-power limit as nvidia-smi reports them, and last
-``{"ok": true, "device": {...}}``.
+Phase 5 drives the DIA path and phase 8 the unstructured path, each with
+its kernels' launch counts set to 0 just before it and read just after;
+comparisons and timings come after the counts are read. The script prints
+one JSON line with the kernels' results (time, plain time, bound, library
+time, launches, error), the card's name and power limit as nvidia-smi
+reports them, and last ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -36,7 +54,18 @@ import numpy as np
 # them against hpddm_tpu
 ORACLE_ITS = {1e-6: 19, 1e-8: 22}
 
+# GMRES iteration counts of the JAX package on the CPU in f64 at the
+# unstructured parity configuration (60x60 Delaunay mesh, S=8, overlap 2,
+# k-way, GenEO nu=8, deflated); tests/test_torch_unstructured.py checks
+# them against hpddm_tpu
+UNSTR_ITS = {1e-6: 8, 1e-8: 10}
+
 KERNEL_RTOL = {"float64": 1e-12, "float32": 1e-5}
+
+# the card's peaks for a kernel's bound (NVIDIA H100 SXM data sheet):
+# HBM3 bandwidth, and f64 / f32 arithmetic outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -56,6 +85,54 @@ def nvidia_smi():
         capture_output=True, text=True, timeout=60)
     check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip()
+
+
+def dtype_name(dt):
+    return str(dt).split(".")[1]
+
+
+def bound(nbytes, flops, dtype):
+    """(least milliseconds for the work, what bounds it): the bytes moved
+    over the HBM rate against the operations over the peak of dtype."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype_name(dtype)]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def block_csr(rows, cols, vals, N):
+    """The block-diagonal (N, N) CSR matrix of the S local matrices from
+    global (row, col, value) triplets, zeros dropped: the operand of the
+    library call that times the same product (torch.sparse.mm). The port
+    never calls it."""
+    import torch
+
+    keep = vals != 0
+    coo = torch.sparse_coo_tensor(torch.stack([rows[keep], cols[keep]]),
+                                  vals[keep], (N, N)).coalesce()
+    return coo.to_sparse_csr()
+
+
+def library_ms(csr, x):
+    """Cold milliseconds of torch.sparse.mm(csr, x), or None (printed) when
+    the installed PyTorch cannot run it on the card."""
+    import torch
+    from hpddm_tpu_torch.timing import cold_events_ms
+
+    try:
+        return cold_events_ms(lambda: torch.sparse.mm(csr, x))
+    except (RuntimeError, NotImplementedError) as e:
+        print(f"  torch.sparse.mm not timed: {e}")
+        return None
+
+
+def kernel_record(name, source, replaces, launches, max_err, ms, plain_ms,
+                  bound_ms, bound_by, lib_ms):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms}
 
 
 def build_problem(S, N, nu, dtype, device, timings=None):
@@ -208,15 +285,401 @@ def phase_card_scale():
     g_p = events_ms(lambda: scaled_exchange(state.dec, spmm_dia(state.A, x)),
                     50)
     nbytes = vals.numel() * 8 + 2 * xs.numel() * 8
+    b_ms, b_by = bound(nbytes, 2 * int(torch.count_nonzero(vals)),
+                       vals.dtype)
+    Sd, nd, n = vals.shape
+    i = torch.arange(n, device="cuda")
+    base = (torch.arange(Sd, device="cuda") * n)[:, None]
+    trip = [[], [], []]
+    for k, off in enumerate(offs):
+        ok = (i + off >= 0) & (i + off < n)
+        trip[0].append((base + i[ok]).reshape(-1))
+        trip[1].append((base + i[ok] + off).reshape(-1))
+        trip[2].append(vals[:, k, ok].reshape(-1))
+    csr = block_csr(*(torch.cat(t) for t in trip), Sd * n)
+    lib_ms = library_ms(csr, xs.reshape(-1, 1))
+    lib_txt = "not timed" if lib_ms is None else f"{lib_ms * 1e3:.2f} us"
     print(f"  dia_spmv at (S={state.dec.S}, nd={len(offs)}, "
           f"n={state.dec.n_max}) f64: "
-          f"kernel {k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us with L2 "
+          f"kernel {k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us, "
+          f"torch.sparse.mm {lib_txt} with L2 "
           f"flushed; {k_warm * 1e3:.2f} / {p_warm * 1e3:.2f} us back to back; "
           f"{nbytes / 1e6:.2f} MB moved -> kernel "
-          f"{nbytes / (k_ms * 1e-3) / 1e9:.0f} GB/s (L2 flushed)")
+          f"{nbytes / (k_ms * 1e-3) / 1e9:.0f} GB/s (L2 flushed), bound "
+          f"{b_ms * 1e3:.2f} us ({b_by}) = {100 * b_ms / k_ms:.1f}% of it")
     print(f"  gmv: {g_k * 1e3:.2f} us through the kernel, {g_p * 1e3:.2f} us "
           "through the plain version (best of 5 x 50)")
-    return launches, k_ms, p_ms
+    return kernel_record(
+        "dia_spmv", "hpddm_tpu_torch/csrc/dia_spmv.cu",
+        "hpddm_tpu/ops/pallas_spmv.py:98", launches, None, k_ms, p_ms,
+        b_ms, b_by, lib_ms), g_k
+
+
+def random_ell(rng, S, n, w, band, pad_row=False):
+    """Slot-major (S, w, n) ELL values and int32 columns, each row's
+    columns within +-band of the row; with pad_row, row 0 of subdomain 0
+    is all padding (value 0, column 0)."""
+    rows = np.arange(n)[None, None, :]
+    cols = np.clip(rows + rng.integers(-band, band + 1, size=(S, w, n)),
+                   0, n - 1).astype(np.int32)
+    vals = rng.normal(size=(S, w, n))
+    if pad_row:
+        vals[0, :, 0] = 0.0
+        cols[0, :, 0] = 0
+    return vals, cols
+
+
+def check_ell(name, vals, cols, mus, rng):
+    """B4 against its plain version on the slot-major batch vals, cols
+    (S, w, n), in f32 and f64 for each mu in mus, within KERNEL_RTOL of
+    max|y|; returns the largest |difference|."""
+    import torch
+    from hpddm_tpu_torch.ops import ell_spmv as ek
+
+    S, w, n = vals.shape
+    worst = 0.0
+    for mu in mus:
+        x64 = torch.as_tensor(rng.normal(size=(S, n, mu)), device="cuda")
+        for dt in (torch.float64, torch.float32):
+            v, x = vals.to(dt), x64.to(dt)
+            y = ek.ell_spmv(v, cols, x)
+            ref = ek.ell_spmv_reference(v, cols, x)
+            torch.cuda.synchronize()
+            err = float((y - ref).abs().max())
+            scale = float(ref.abs().max())
+            rtol = KERNEL_RTOL[dtype_name(dt)]
+            print(f"  ell_spmv vs plain [{name}, S={S}, w={w}, n={n}, "
+                  f"mu={mu}, {dt}]: max|err| = {err:.3e} (max|y| = "
+                  f"{scale:.3e}, tolerance {rtol:g} * max|y|), bitwise "
+                  f"equal: {torch.equal(y, ref)}")
+            check(err <= rtol * scale,
+                  f"ell_spmv disagrees with plain: {name} mu={mu} {dt}")
+            worst = max(worst, err)
+            del y, ref
+    return worst
+
+
+def exchange_csr(plan, dtype):
+    """The (S n, S n) CSR matrix I + P of the exchange, a linear map: row
+    (s, i) holds 1 on its diagonal and, for an interface dof, 1 at each
+    partner copy's flat row. The operand of the library call that times
+    the same function (torch.sparse.mm); the port never calls it."""
+    import torch
+
+    S, n = plan.slot.shape
+    dev = plan.slot.device
+    flat = torch.arange(S * n, device=dev)
+    slot = plan.slot.long().reshape(-1)
+    on_if = slot >= 0
+    sub = torch.div(flat[on_if], n, rounding_mode="floor")
+    prow = plan.rows.long()[sub, slot[on_if]]                 # (M, k_max)
+    valid = prow >= 0
+    rows = torch.cat([flat, flat[on_if][:, None].expand_as(prow)[valid]])
+    cols = torch.cat([flat, prow[valid]])
+    return block_csr(rows, cols, torch.ones(rows.numel(), dtype=dtype,
+                                            device=dev), S * n)
+
+
+def check_pexchange(name, dec, rng, mus=(1, 3)):
+    """B5 against its plain version and the port's plain exchange, bitwise,
+    in f32 and f64 for each mu in mus; returns the largest |difference|."""
+    import dataclasses
+
+    import torch
+    from hpddm_tpu_torch.parallel import pexchange as pk
+    from hpddm_tpu_torch.parallel.ops import exchange
+
+    plan = dec.pexch if dec.pexch is not None else pk.build_plan(dec)
+    plain_dec = dataclasses.replace(dec, pexch=None)
+    worst = 0.0
+    for mu in mus:
+        x_np = rng.normal(size=(dec.S, dec.n_max, mu))
+        for dt in (torch.float64, torch.float32):
+            x = torch.as_tensor(x_np, device="cuda").to(dt)
+            y = pk.pexchange(plan, x)
+            ref = pk.pexchange_reference(plan, x)
+            plain = exchange(plain_dec, x)
+            torch.cuda.synchronize()
+            err = max(float((y - ref).abs().max()),
+                      float((y - plain).abs().max()))
+            same = torch.equal(y, ref) and torch.equal(y, plain)
+            print(f"  pexchange vs plain [{name}, S={dec.S}, n={dec.n_max}, "
+                  f"m_max={dec.m_max}, k_max={dec.k_max}, mu={mu}, {dt}]: "
+                  f"max|err| = {err:.3e}, bitwise equal: {same}")
+            check(same, f"pexchange differs from plain: {name} mu={mu} {dt}")
+            worst = max(worst, err)
+    return worst
+
+
+def phase_kernels_unstructured():
+    import torch
+    from hpddm_tpu_torch.core.formats import pack_local_matrices
+    from hpddm_tpu_torch.models import unstructured
+    from hpddm_tpu_torch.parallel.decomposition import Decomposition
+
+    print("phase 6: kernels vs plain, ELL SpMV (B4) and exchange (B5)")
+    gen = unstructured.generate(8, 60, 60, overlap=2, with_neumann=False)
+    A = pack_local_matrices(gen.mats, device="cuda")
+    rng = np.random.default_rng(4321)
+    cases = [("test size", A.values, A.cols),
+             ("card", *random_ell(rng, 64, 4640, 11, 132)),
+             ("ragged n, all-padding row",
+              *random_ell(rng, 3, 1000, 7, 40, pad_row=True))]
+    worst = 0.0
+    for name, vals, cols in cases:
+        worst = max(worst, check_ell(name, torch.as_tensor(vals, device="cuda"),
+                                     torch.as_tensor(cols, device="cuda"),
+                                     (1, 3), rng))
+    dec = Decomposition.from_subdomains(gen.neighbors, gen.mappings,
+                                        gen.n_loc, d=gen.d, device="cuda")
+    return worst, check_pexchange("test size", dec, rng)
+
+
+def build_unstructured(S, nx, nu, partition, device, dtype=np.float64,
+                       timings=None):
+    """(generated problem, options, state, rhs) of the P1-FEM path: the
+    mesh and its decomposition in f64, the operator in dtype."""
+    import torch
+    from hpddm_tpu_torch.core.csr import MatrixCSR
+    from hpddm_tpu_torch.models import unstructured
+    from hpddm_tpu_torch.options import Options
+    from hpddm_tpu_torch.precond.schwarz import Schwarz
+
+    t = time.perf_counter()
+    gen = unstructured.generate(S, nx, nx, overlap=2, with_neumann=True,
+                                partition=partition)
+    t_gen = time.perf_counter() - t
+    mats, neumann = gen.mats, gen.neumann
+    if dtype != np.float64:
+        mats = [MatrixCSR(m.scipy().astype(dtype)) for m in mats]
+        neumann = [MatrixCSR(m.scipy().astype(dtype)) for m in neumann]
+    t = time.perf_counter()
+    opt = Options(schwarz_coarse_correction="deflated", geneo_nu=nu)
+    sch = Schwarz(mats, gen.neighbors, gen.mappings, d=gen.d, options=opt,
+                  device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t
+    sch.solve_gevp(neumann)
+    state = sch.build()
+    f = np.zeros((S, sch.n_max, 1), dtype=dtype)
+    for s in range(S):
+        f[s, : gen.n_loc[s]] = gen.f[s]
+    if timings is not None:
+        timings.update(generate=t_gen, decomposition=t_dec, **sch.timings)
+    return gen, opt, state, torch.as_tensor(f, device=device)
+
+
+def true_residual(gen, x):
+    """Relative residual of x on the assembled global system, in f64."""
+    xs = x.double().cpu().numpy()
+    xg = np.zeros(gen.A_global.shape[0])
+    for s in range(len(gen.n_loc)):
+        xg[gen.gids[s]] = xs[s, : gen.n_loc[s], 0]
+    fg = np.where(gen.boundary, 0.0, 1.0)
+    r = gen.A_global.astype(np.float64) @ xg - fg
+    return float(np.linalg.norm(r) / np.linalg.norm(fg))
+
+
+def phase_unstructured_parity():
+    import hashlib
+
+    from hpddm_tpu_torch.solvers.krylov import solve
+
+    print("phase 7: unstructured parity (60x60 Delaunay mesh, S=8, overlap "
+          "2, k-way, nu=8, deflated)")
+    its = {}
+    for device in ("cuda", "cpu"):
+        gen, opt, state, f = build_unstructured(8, 60, 8, "kway", device)
+        if device == "cuda":
+            print("  mesh: {} points, {} triangles, sha256 of the triangles "
+                  "{}".format(len(gen.points), len(gen.triangles),
+                              hashlib.sha256(gen.triangles.tobytes())
+                              .hexdigest()[:16]))
+        for tol, want in UNSTR_ITS.items():
+            opt["tol"] = tol
+            res = solve(state, f, opt=opt)
+            rel = true_residual(gen, res.x)
+            its[(device, tol)] = res.iterations
+            print(f"  {device} f64 tol {tol:g}: {res.iterations} iterations "
+                  f"(JAX CPU f64: {want}), true global rel. residual "
+                  f"{rel:.3e}")
+            check(bool(res.converged.all()), f"{device} tol {tol:g} did not "
+                  "converge")
+            if device == "cuda":
+                check(res.iterations == want,
+                      f"unstructured f64 at tol {tol:g}: {res.iterations} "
+                      f"!= {want}")
+                if tol == 1e-6:
+                    check(rel <= 1e-6, f"true residual {rel:.3e} at 1e-6")
+    for tol in UNSTR_ITS:
+        check(its[("cuda", tol)] == its[("cpu", tol)],
+              f"card and CPU iteration counts differ at tol {tol:g}")
+    gen, opt, state, f = build_unstructured(8, 60, 8, "kway", "cuda",
+                                            dtype=np.float32)
+    opt["tol"] = 1e-6
+    res = solve(state, f, opt=opt)
+    rel = true_residual(gen, res.x)
+    print(f"  cuda f32 tol 1e-06: {res.iterations} iterations, true global "
+          f"rel. residual {rel:.3e}")
+    check(res.iterations <= 60 and rel <= 1e-4, "f32 unstructured gates")
+
+
+def phase_unstructured_card(grid_gmv_ms):
+    import dataclasses
+
+    import torch
+    from hpddm_tpu_torch.ops import ell_spmv as ek
+    from hpddm_tpu_torch.parallel import pexchange as pk
+    from hpddm_tpu_torch.parallel.ops import exchange
+    from hpddm_tpu_torch.precond.schwarz import gmv
+    from hpddm_tpu_torch.solvers.krylov import solve
+    from hpddm_tpu_torch.timing import cold_events_ms, events_ms, timed
+
+    S, N = 64, 512
+    print(f"phase 8: unstructured card scale ({N}x{N} mesh, S={S}, overlap "
+          "2, geometric partition, nu=10, f64, tol 1e-6)")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ek.launches = pk.launches = 0            # the main path's counts from here
+    timings = {}
+    gen, opt, state, f = build_unstructured(S, N, 10, "geometric", "cuda",
+                                            timings=timings)
+    after_setup = (ek.launches, pk.launches)
+    opt["tol"] = 1e-6
+    best, solve_s, res = timed(lambda: solve(state, f, opt=opt), reps=3,
+                               warmup=1)
+    launches = (ek.launches, pk.launches)    # read just after the main path
+    rel = checked_residual(state, f, res)
+    true_rel = true_residual(gen, res.x)
+    peak = torch.cuda.max_memory_allocated()
+    dec = state.dec
+    check(bool(res.converged.all()) and res.iterations < int(opt.val("max_it")),
+          f"unstructured card scale did not converge in {res.iterations} "
+          "iterations")
+    check(rel <= 1e-5, f"recomputed rel. residual {rel:.3e}")
+    check(true_rel <= 1e-5, f"true global rel. residual {true_rel:.3e}")
+    for name, before, after in zip(("ell_spmv", "pexchange"), after_setup,
+                                   launches):
+        check(before > 0 and after > before,
+              f"{name} launches: setup {before}, after 4 solves {after}")
+    print(f"  n_max {dec.n_max}, m_max {dec.m_max}, k_max {dec.k_max}, ELL "
+          f"width {state.A.values.shape[1]}, coarse size "
+          f"{state.coarse.E_inv.shape[0]}")
+    print("  setup seconds: " + ", ".join(f"{k} {v:.3f}"
+                                          for k, v in timings.items()))
+    print(f"  solve: {res.iterations} iterations, recomputed rel. residual "
+          f"{rel:.3e}, true global rel. residual {true_rel:.3e}, best of 3 "
+          f"after a warm-up {best:.4f} s "
+          f"({', '.join(f'{t:.4f}' for t in solve_s)})")
+    print(f"  peak device memory {peak / 2**30:.2f} GiB "
+          "(torch.cuda.max_memory_allocated)")
+    for name, before, after in zip(("ell_spmv", "pexchange"), after_setup,
+                                   launches):
+        print(f"  {name} launches: {before} in setup, {(after - before) / 4:g}"
+              f" per solve, {after} in all")
+
+    # comparisons and timings: not counted as main-path launches
+    n = dec.n_max
+    n_c = state.coarse.E_inv.shape[0]
+    x = (dec.d[:, :, None] * torch.ones_like(f)).contiguous()
+    vt, ct = state.A.values, state.A.cols
+    w = vt.shape[1]
+    k_ms = cold_events_ms(lambda: ek.ell_spmv(vt, ct, x))
+    p_ms = cold_events_ms(lambda: ek.ell_spmv_reference(vt, ct, x))
+    k_warm = events_ms(lambda: ek.ell_spmv(vt, ct, x), 200)
+    p_warm = events_ms(lambda: ek.ell_spmv_reference(vt, ct, x), 50)
+    base = (torch.arange(S, device="cuda") * n)[:, None, None]
+    rows = (base + torch.arange(n, device="cuda")[None, None, :]).expand(
+        S, w, n)
+    csr = block_csr(rows.reshape(-1), (base + ct.long()).reshape(-1),
+                    vt.reshape(-1), S * n)
+    xs = x.reshape(-1, 1)
+    lib_cold = library_ms(csr, xs)
+    lib_warm = None if lib_cold is None else events_ms(
+        lambda: torch.sparse.mm(csr, xs), 200)
+    # the bound counts the matrix's nonzeros (value and column once each),
+    # x read and y written, and a product and a sum per nonzero; the
+    # padded ELL arrays the kernel actually reads are printed beside it
+    nnz = int(torch.count_nonzero(vt))
+    nbytes = nnz * (8 + 4) + 2 * x.numel() * 8
+    padded = vt.numel() * 8 + ct.numel() * 4 + 2 * x.numel() * 8
+    b4_ms, b4_by = bound(nbytes, 2 * nnz, vt.dtype)
+    y4 = ek.ell_spmv(vt, ct, x)
+    ref4 = ek.ell_spmv_reference(vt, ct, x)
+    b4_err = float((y4 - ref4).abs().max())
+    b4_scale = float(ref4.abs().max())
+    lib_txt = "not timed" if lib_cold is None else \
+        f"{lib_cold * 1e3:.2f} / {lib_warm * 1e3:.2f} us"
+    print(f"  ell_spmv at (S={S}, w={w}, n={n}) f64, mu=1: kernel "
+          f"{k_ms * 1e3:.2f} / {k_warm * 1e3:.2f} us, plain "
+          f"{p_ms * 1e3:.2f} / {p_warm * 1e3:.2f} us, torch.sparse.mm "
+          f"{lib_txt} (L2 flushed / back to back); bound {b4_ms * 1e3:.2f} "
+          f"us ({b4_by}; {nnz} nonzeros, {nbytes / 1e6:.2f} MB) = "
+          f"{100 * b4_ms / k_ms:.1f}% of the kernel's cold time; the padded "
+          f"arrays' {padded / 1e6:.2f} MB would bound it at "
+          f"{padded / HBM_BYTES_PER_S * 1e6:.2f} us, the kernel reads them at "
+          f"{padded / (k_ms * 1e-3) / 1e9:.0f} GB/s cold; max|kernel - plain| "
+          f"{b4_err:.3e} (max|y| {b4_scale:.3e})")
+    check(b4_err <= KERNEL_RTOL["float64"] * b4_scale,
+          f"ell_spmv disagrees with plain on the card operator: {b4_err:.3e}")
+    del y4, ref4
+    # the coarse assembly's panel (mu = coarse size): the "+1 in setup"
+    # launch, the kernel's multi-tile branch
+    b4_err = max(b4_err, check_ell("card operator, coarse panel", vt, ct,
+                                   (n_c,), np.random.default_rng(98)))
+
+    plan = dec.pexch
+    plain_dec = dataclasses.replace(dec, pexch=None)
+    e_ms = cold_events_ms(lambda: pk.pexchange(plan, x))
+    r_ms = cold_events_ms(lambda: pk.pexchange_reference(plan, x))
+    g_ms = cold_events_ms(lambda: exchange(plain_dec, x))
+    e_warm = events_ms(lambda: pk.pexchange(plan, x), 200)
+    r_warm = events_ms(lambda: pk.pexchange_reference(plan, x), 50)
+    g_warm = events_ms(lambda: exchange(plain_dec, x), 50)
+    # the exchange is the linear map I + P: the library times it as one
+    # sparse product on that matrix
+    E = exchange_csr(plan, x.dtype)
+    xs = x.reshape(-1, 1)
+    l5_cold = library_ms(E, xs)
+    l5_warm = None if l5_cold is None else events_ms(
+        lambda: torch.sparse.mm(E, xs), 200)
+    if l5_cold is not None:
+        l5_err = float((torch.sparse.mm(E, xs).reshape(x.shape)
+                        - pk.pexchange(plan, x)).abs().max())
+        print(f"  max|(I + P) x - pexchange(x)| {l5_err:.3e} (the library "
+              "sums in its own order)")
+    # x read, y written, the slot of every dof and the valid partner rows
+    # once each; one sum per valid partner
+    valid = int((plan.rows >= 0).sum())
+    nbytes5 = 2 * x.numel() * 8 + plan.slot.numel() * 4 + valid * 4
+    b5_ms, b5_by = bound(nbytes5, valid, x.dtype)
+    l5_txt = "not timed" if l5_cold is None else \
+        f"{l5_cold * 1e3:.2f} / {l5_warm * 1e3:.2f} us"
+    print(f"  pexchange at (S={S}, n={n}, m_max={dec.m_max}, "
+          f"k_max={dec.k_max}) f64, mu=1: kernel {e_ms * 1e3:.2f} / "
+          f"{e_warm * 1e3:.2f} us, plain version {r_ms * 1e3:.2f} / "
+          f"{r_warm * 1e3:.2f} us, the port's plain exchange "
+          f"{g_ms * 1e3:.2f} / {g_warm * 1e3:.2f} us, torch.sparse.mm on "
+          f"I + P ({E._nnz()} nonzeros) {l5_txt} (L2 flushed / back to "
+          f"back); bound {b5_ms * 1e3:.2f} us ({b5_by}; {nbytes5 / 1e6:.2f} "
+          f"MB) = {100 * b5_ms / e_ms:.1f}% of the kernel's cold time")
+    del E
+    b5_err = check_pexchange("card", dec, np.random.default_rng(99),
+                             mus=(1, 3, n_c))
+
+    g_ms1 = events_ms(lambda: gmv(state, x), 50)
+    print(f"  gmv: {g_ms1 * 1e3:.2f} us (best of 5 x 50); grid gmv at the "
+          f"same 262,144 dofs (phase 5) {grid_gmv_ms * 1e3:.2f} us; "
+          f"unstructured / grid = {g_ms1 / grid_gmv_ms:.2f}")
+    return [kernel_record(
+                "ell_spmv", "hpddm_tpu_torch/csrc/ell_spmv.cu",
+                "hpddm_tpu/ops/pallas_ell.py:133", launches[0], b4_err, k_ms,
+                p_ms, b4_ms, b4_by, lib_cold),
+            kernel_record(
+                "pexchange", "hpddm_tpu_torch/csrc/pexchange.cu",
+                "hpddm_tpu/parallel/pexchange.py:149", launches[1], b5_err,
+                e_ms, r_ms, b5_ms, b5_by, l5_cold)]
 
 
 def main():
@@ -241,23 +704,29 @@ def main():
 
     from hpddm_tpu_torch import _build
     t = time.perf_counter()
-    _build.build(force=True)
+    libs = _build.build(force=True)
     _build.load()
-    print(f"phase 2: built {_build.LIB_PATH} from "
-          f"{len(_build.sources())} source(s) in "
-          f"{time.perf_counter() - t:.2f} s")
+    print(f"phase 2: built {len(libs)} libraries from "
+          f"{len(_build.sources())} sources in parallel in "
+          f"{time.perf_counter() - t:.2f} s: "
+          + ", ".join(os.path.basename(p) for p in libs))
 
     print("phase 3: kernel vs plain")
     max_err = phase_kernels()
     phase_oracle()
-    launches, k_ms, p_ms = phase_card_scale()
+    dia, grid_gmv_ms = phase_card_scale()
+    dia["max_abs_err"] = max_err
+    t = time.perf_counter()
+    b4_err, b5_err = phase_kernels_unstructured()
+    phase_unstructured_parity()
+    print(f"  phases 6-7: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    ell, pex = phase_unstructured_card(grid_gmv_ms)
+    print(f"  phase 8: {time.perf_counter() - t:.1f} s")
+    ell["max_abs_err"] = max(b4_err, ell["max_abs_err"])
+    pex["max_abs_err"] = max(b5_err, pex["max_abs_err"])
 
-    kernels = {"kernels": [{
-        "name": "dia_spmv", "route": "cuda",
-        "source": "hpddm_tpu_torch/csrc/dia_spmv.cu",
-        "replaces": "hpddm_tpu/ops/pallas_spmv.py:98",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": k_ms, "plain_ms": p_ms}]}
+    kernels = {"kernels": [dia, ell, pex]}
     print(f"wall {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps(kernels))

@@ -3,9 +3,12 @@
 The same batched layout as the JAX package (the subdomain axis ``S``
 leads; vectors are (S, n_max, mu)), held against it by the tests in
 ``tests/test_torch_*.py``. Host setup is numpy/scipy, the runtime is
-plain PyTorch, and the DIA SpMV of the Krylov hot loop is a hand-written
-CUDA kernel (``csrc/dia_spmv.cu``, built at first use by ``_build.py``).
-Module paths mirror ``hpddm_tpu``. This package never imports JAX.
+plain PyTorch, and the kernels of the Krylov hot loop are hand-written
+CUDA (``csrc/*.cu``, built at first use by ``_build.py``): the DIA SpMV of
+stencil operators, the ELL SpMV of unstructured ones and the one-pass
+exchange that goes with them. Entry points put their tensors on the card
+unless the caller asks for the CPU. Module paths mirror ``hpddm_tpu``.
+This package never imports JAX.
 """
 
 __version__ = "0.1.0"

@@ -6,12 +6,16 @@ axis ``S``:
 * ``BatchedDIA``: diagonal storage for stencil matrices, values[s, k, i] =
   A_s[i, i + offsets[k]]. The SpMV streams the value planes once
   (ops/dia_spmv.py). Offsets are static per problem.
+* ``BatchedELL``: padded fixed-width rows (values + int32 column
+  indices) for unstructured operators, stored slot-major so that the
+  SpMV kernel's threads (adjacent rows) read adjacent words; the SpMV is
+  a gather and a sum over the row's slots (ops/ell_spmv.py).
 * ``BatchedDense``: explicit dense blocks; SpMV is a batched matmul.
 
 ``pack_local_matrices`` packs per-subdomain host ``MatrixCSR`` (auto: DIA
-when the union of offsets is small). Rows are padded to ``n_max``; padded
-rows are identity rows (diagonal 1) so factorizations stay non-singular.
-The ELL format (unstructured operators) belongs to a later slice.
+when the union of offsets has at most 32 diagonals, else ELL). Rows are
+padded to ``n_max``; padded rows are identity rows (diagonal 1) so
+factorizations stay non-singular, and padded ELL slots carry value 0.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import numpy as np
 import torch
 
 from hpddm_tpu_torch.core.csr import MatrixCSR
+from hpddm_tpu_torch.device import DEFAULT, as_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,6 +36,19 @@ class BatchedDIA:
     values: torch.Tensor                  # (S, ndiag, n_max), contiguous
     offsets: Tuple[int, ...]
     n_max: int
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchedELL:
+    """Padded slot-major ELL batch: values[s, j, i] = A_s[i, cols[s, j, i]]
+    (the transpose of the JAX package's row-major (S, n_max, w) arrays);
+    padding slots hold value 0 and column 0."""
+    values: torch.Tensor                  # (S, w, n_max), contiguous
+    cols: torch.Tensor                    # (S, w, n_max) int32, contiguous
+    n_max: int
+
+    def astype(self, dtype) -> "BatchedELL":
+        return dataclasses.replace(self, values=self.values.to(dtype))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,15 +70,30 @@ def _diag_offsets(mats: Sequence[MatrixCSR],
     return np.array(sorted(offsets), dtype=np.int64)
 
 
+def ell_pack(csr, n_max: int, width: int):
+    """CSR -> padded (n_max, width) ELL arrays, each row's entries in CSR
+    storage order (the numpy branch of ``hpddm_tpu/native`` ``ell_pack``;
+    the port builds no host library)."""
+    n = csr.shape[0]
+    values = np.zeros((n_max, width), dtype=np.float64)
+    cols = np.zeros((n_max, width), dtype=np.int32)
+    for i in range(n):
+        lo, hi = csr.indptr[i], csr.indptr[i + 1]
+        values[i, : hi - lo] = csr.data[lo:hi]
+        cols[i, : hi - lo] = csr.indices[lo:hi]
+    return values, cols
+
+
 def pack_local_matrices(mats: Sequence[MatrixCSR], n_max: Optional[int] = None,
                         fmt: str = "auto", dtype=None,
-                        pad_identity: bool = True, device="cpu"):
+                        pad_identity: bool = True, device=DEFAULT):
     """Pack per-subdomain CSR matrices into a batched device format.
 
-    fmt in {"auto", "dia", "dense"}; "auto" picks DIA when the union of
-    diagonals has at most 32 offsets. Symmetric-stored inputs are expanded
-    to full storage first.
+    fmt in {"auto", "dia", "ell", "dense"}; "auto" picks DIA when the union
+    of diagonals has at most 32 offsets, else ELL. Symmetric-stored inputs
+    are expanded to full storage first.
     """
+    device = as_device(device)
     S = len(mats)
     if n_max is None:
         n_max = max(m.n for m in mats)
@@ -69,11 +102,7 @@ def pack_local_matrices(mats: Sequence[MatrixCSR], n_max: Optional[int] = None,
 
     if fmt == "auto":
         offs = _diag_offsets(mats)
-        if offs is None:
-            raise NotImplementedError(
-                "more than 32 diagonals: the ELL format is not ported yet "
-                "(ROADMAP queue A, slice 3, unstructured path)")
-        fmt = "dia"
+        fmt = "dia" if offs is not None else "ell"
     else:
         offs = _diag_offsets(mats, cap=None) if fmt == "dia" else None
 
@@ -91,6 +120,33 @@ def pack_local_matrices(mats: Sequence[MatrixCSR], n_max: Optional[int] = None,
                           offsets=tuple(int(o) for o in offs),
                           n_max=int(n_max))
 
+    if fmt == "ell":
+        width = 1
+        rows_list = []
+        for m in mats:
+            csr = m.scipy(expand=True)
+            counts = np.diff(csr.indptr)
+            width = max(width, int(counts.max(initial=1)))
+            rows_list.append(csr)
+        vals = np.zeros((S, n_max, width), dtype=dtype)
+        cols = np.zeros((S, n_max, width), dtype=np.int32)
+        for s, csr in enumerate(rows_list):
+            if np.issubdtype(csr.dtype, np.floating):
+                csr = csr.astype(np.float64)
+            v, c = ell_pack(csr, n_max, width)
+            vals[s] = v.astype(dtype)
+            cols[s] = c
+            if pad_identity:
+                n = csr.shape[0]
+                vals[s, n:, 0] = 1.0
+                cols[s, n:, 0] = np.arange(n, n_max)
+        return BatchedELL(
+            values=torch.as_tensor(np.ascontiguousarray(
+                vals.transpose(0, 2, 1)), device=device),
+            cols=torch.as_tensor(np.ascontiguousarray(
+                cols.transpose(0, 2, 1)), device=device),
+            n_max=int(n_max))
+
     if fmt == "dense":
         vals = np.zeros((S, n_max, n_max), dtype=dtype)
         for s, m in enumerate(mats):
@@ -101,10 +157,6 @@ def pack_local_matrices(mats: Sequence[MatrixCSR], n_max: Optional[int] = None,
         return BatchedDense(values=torch.as_tensor(vals, device=device),
                             n_max=int(n_max))
 
-    if fmt == "ell":
-        raise NotImplementedError(
-            "the ELL format is not ported yet (ROADMAP queue A, slice 3, "
-            "unstructured path)")
     raise ValueError(f"unknown format {fmt!r}")
 
 
@@ -114,6 +166,11 @@ def batched_dense_from(mat, sub: slice = slice(None)) -> torch.Tensor:
     of a setup loop to a few n^2 blocks at a time."""
     if isinstance(mat, BatchedDense):
         return mat.values[sub]
+    if isinstance(mat, BatchedELL):
+        vals = mat.values[sub].transpose(1, 2)            # (S', n, w)
+        Sb, n, _ = vals.shape
+        out = vals.new_zeros((Sb, n, n))
+        return out.scatter_add_(2, mat.cols[sub].transpose(1, 2).long(), vals)
     if isinstance(mat, BatchedDIA):
         vals = mat.values[sub]
         Sb, nd, n = vals.shape

@@ -2,14 +2,18 @@
 """Where the time of the main path goes on the GPU.
 
     python -m hpddm_tpu_torch.examples.profile_main_path [--N 512] [--S 64] \
-        [--nu 10] [--tol 1e-6] [--trace trace.json]
+        [--nu 10] [--tol 1e-6] [--model diffusion2d|unstructured] \
+        [--trace trace.json]
 
-Builds the two-level GenEO-RAS preconditioner of the 2D diffusion problem
-(N x N grid, S subdomains, overlap 1, f64) on the GPU, then:
+Builds the two-level GenEO-RAS preconditioner on the GPU, in f64, of the
+2D diffusion problem (N x N grid, S subdomains, overlap 1: DIA local
+matrices, slice 1) or of the unstructured P1-FEM problem (N x N mesh
+points, S subdomains by geometric partition, overlap 2: ELL local
+matrices and the one-pass exchange kernel, slice 2), then:
 
 * times each piece of one right-preconditioned GMRES iteration with CUDA
   events (best of 5 blocks of back-to-back calls): the local solve, the
-  exchange, the DIA SpMV kernel, gmv, the coarse deflation, the full
+  exchange, the local SpMV kernel, gmv, the coarse deflation, the full
   preconditioner apply and the CGS Gram step at mid-cycle;
 * times whole solves (host clock around a synchronized solve);
 * traces one solve with torch.profiler: device time by kernel and the
@@ -29,7 +33,7 @@ import torch
 
 
 def main(argv=None):
-    from hpddm_tpu_torch.models import diffusion2d
+    from hpddm_tpu_torch.models import diffusion2d, unstructured
     from hpddm_tpu_torch.options import Options
     from hpddm_tpu_torch.ops.spmv import spmm
     from hpddm_tpu_torch.parallel.ops import scaled_exchange
@@ -42,6 +46,8 @@ def main(argv=None):
     p.add_argument("--S", type=int, default=64)
     p.add_argument("--nu", type=int, default=10)
     p.add_argument("--tol", type=float, default=1e-6)
+    p.add_argument("--model", choices=("diffusion2d", "unstructured"),
+                   default="diffusion2d")
     p.add_argument("--trace", default=None)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -54,7 +60,11 @@ def main(argv=None):
     print(f"card: {smi}")
 
     S, N = args.S, args.N
-    gen = diffusion2d.generate(S, N, N, overlap=1, with_neumann=True)
+    if args.model == "unstructured":
+        gen = unstructured.generate(S, N, N, overlap=2, with_neumann=True,
+                                    partition="geometric")
+    else:
+        gen = diffusion2d.generate(S, N, N, overlap=1, with_neumann=True)
     opt = Options(schwarz_coarse_correction="deflated", geneo_nu=args.nu,
                   tol=args.tol)
     sch = sz.Schwarz(gen.mats, gen.neighbors, gen.mappings, d=gen.d,
@@ -66,7 +76,7 @@ def main(argv=None):
         f[s, : gen.n_loc[s]] = gen.f[s]
     f = torch.as_tensor(f, device="cuda")
     dec = state.dec
-    print(f"problem: {N}x{N}, S={S}, n_max={dec.n_max}, m_max={dec.m_max}, "
+    print(f"problem: {args.model} {N}x{N}, S={S}, n_max={dec.n_max}, m_max={dec.m_max}, "
           f"coarse {state.coarse.E_inv.shape[0]}; setup "
           + ", ".join(f"{k} {v:.3f} s" for k, v in sch.timings.items()))
 
@@ -77,7 +87,8 @@ def main(argv=None):
     pieces = {
         "local solve (bmm of the inverses)": lambda: state.solver.solve(x),
         "scaled exchange": lambda: scaled_exchange(dec, x),
-        "dia_spmv kernel (spmm)": lambda: spmm(state.A, x),
+        f"{type(state.A).__name__} SpMV kernel (spmm)":
+            lambda: spmm(state.A, x),
         "gmv = spmm + scaled exchange": lambda: sz.gmv(state, x),
         "deflation (coarse correction)": lambda: sz.deflation(state, x),
         "apply (deflated RAS)": lambda: sz.apply(state, x),

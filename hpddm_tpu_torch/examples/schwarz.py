@@ -7,10 +7,11 @@
         [-symmetric_csr 1] [-generate_random_rhs 4] [-nonuniform 1] \
         [-hpddm_verbosity 2]
 
--N picks the number of subdomains, batched on one device (cuda when a GPU
-is present, else cpu; -device overrides). Vectors are f64 on both. Exits
-non-zero unless the reference's oracles hold (iterations <= 45,
-independently recomputed residual <= 1e-2, examples/schwarz.cpp:140-143).
+-N picks the number of subdomains, batched on one device: the card unless
+-device cpu is given (without a CUDA device, -device cuda raises). Vectors
+are f64 on both. Exits non-zero unless the reference's oracles hold
+(iterations <= 45, independently recomputed residual <= 1e-2,
+examples/schwarz.cpp:140-143).
 """
 
 import sys
@@ -20,6 +21,7 @@ import torch
 
 
 def main(argv=None):
+    from hpddm_tpu_torch.device import DEFAULT, as_device
     from hpddm_tpu_torch.models import diffusion2d
     from hpddm_tpu_torch.options import Options
     from hpddm_tpu_torch.precond.schwarz import Schwarz, compute_residual
@@ -41,8 +43,7 @@ def main(argv=None):
     mu = int(opt.app()["generate_random_rhs"])
     sym = bool(opt.app().get("symmetric_csr", 0))
     verbosity = int(opt.val("verbosity", 0))
-    device = opt.app().get("device",
-                           "cuda" if torch.cuda.is_available() else "cpu")
+    device = as_device(opt.app().get("device", DEFAULT))
     dtype = np.float64
 
     two_level = opt.set("schwarz_coarse_correction")

@@ -12,7 +12,10 @@ Keys of ``arrays`` (numpy arrays unless stated):
   ``ov_mask``, ``mult``, ``partners``, ``inv_map``, ``is_if``; ints
   ``S``, ``n_max``, ``m_max``, ``n_if``, ``n_global``, ``k_max``; tuple
   ``sub_shifts`` (optional);
-* local matrices (DIA): ``A_values`` (S, nd, n_max), ``A_offsets`` (tuple);
+* local matrices: DIA as ``A_values`` (S, nd, n_max) and ``A_offsets``
+  (tuple), or ELL as ``A_values`` (S, n_max, w) and ``A_cols`` (S, n_max,
+  w), the JAX package's row-major layout; an ELL operator is stored
+  slot-major and gets the one-pass exchange plan, as ``Schwarz`` gives it;
 * local solver (``inv``): ``factor`` (S, n_max, n_max);
 * coarse space (optional; absent for one level): ``Z``, ``E_inv``,
   ``nu_loc``; int ``nu_max``; str ``correction``;
@@ -21,24 +24,28 @@ Keys of ``arrays`` (numpy arrays unless stated):
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict
 
 import numpy as np
 import torch
 
-from hpddm_tpu_torch.core.formats import BatchedDIA
+from hpddm_tpu_torch.core.formats import BatchedDIA, BatchedELL
+from hpddm_tpu_torch.device import DEFAULT, as_device
 from hpddm_tpu_torch.dtypes import as_torch_dtype
 from hpddm_tpu_torch.ops.local_solve import LocalSolver
 from hpddm_tpu_torch.parallel.decomposition import Decomposition
+from hpddm_tpu_torch.parallel.pexchange import build_plan
 from hpddm_tpu_torch.precond.schwarz import CoarseState, SchwarzState
 
 DEC_INT_KEYS = ("S", "n_max", "m_max", "n_if", "n_global", "k_max")
 
 
-def state_from_numpy(arrays: Dict[str, Any], device="cpu",
+def state_from_numpy(arrays: Dict[str, Any], device=DEFAULT,
                      dtype=torch.float64) -> SchwarzState:
     """A port ``SchwarzState`` on ``device`` whose floating tensors are in
-    ``dtype`` and whose index tensors are int64."""
+    ``dtype`` and whose index tensors are int64 (int32 for ELL columns)."""
+    device = as_device(device)
     dtype = as_torch_dtype(dtype)
 
     def t(key, dt):
@@ -61,9 +68,16 @@ def state_from_numpy(arrays: Dict[str, Any], device="cpu",
         partners=i("partners"), inv_map=i("inv_map"), is_if=b("is_if"),
         sub_shifts=tuple(arrays.get("sub_shifts", ())),
         **{k: int(arrays[k]) for k in DEC_INT_KEYS})
-    A = BatchedDIA(values=f("A_values").contiguous(),
-                   offsets=tuple(int(o) for o in arrays["A_offsets"]),
-                   n_max=int(arrays["n_max"]))
+    if arrays.get("A_cols") is not None:
+        A = BatchedELL(values=f("A_values").transpose(1, 2).contiguous(),
+                       cols=t("A_cols", torch.int32).transpose(1, 2)
+                       .contiguous(),
+                       n_max=int(arrays["n_max"]))
+        dec = dataclasses.replace(dec, pexch=build_plan(dec))
+    else:
+        A = BatchedDIA(values=f("A_values").contiguous(),
+                       offsets=tuple(int(o) for o in arrays["A_offsets"]),
+                       n_max=int(arrays["n_max"]))
     coarse = None
     if arrays.get("Z") is not None:
         coarse = CoarseState(

@@ -5,6 +5,11 @@
   as the JAX package sends it to its Pallas kernel
   (``hpddm_tpu/ops/spmv.py:210-219``); more right-hand sides take the plain
   version until the multi-RHS kernel is ported (ROADMAP queue B, B2).
+* ELL: a gather and a sum over each row's slots of the slot-major batch.
+  Every ELL product on a CUDA tensor, any mu, goes through
+  the hand-written kernel (ops/ell_spmv.py), as the JAX package sends its
+  windowed ELL operators to its Pallas kernel
+  (``hpddm_tpu/ops/spmv.py:193-196``).
 * Dense: a batched matmul.
 
 All operate on a batch x: (S, n_max, mu).
@@ -14,13 +19,19 @@ from __future__ import annotations
 
 import torch
 
-from hpddm_tpu_torch.core.formats import BatchedDense, BatchedDIA
+from hpddm_tpu_torch.core.formats import BatchedDense, BatchedDIA, BatchedELL
 from hpddm_tpu_torch.ops.dia_spmv import dia_spmv, dia_spmv_reference
+from hpddm_tpu_torch.ops.ell_spmv import ell_spmv, ell_spmv_reference
 
 
 def spmm_dia(A: BatchedDIA, x: torch.Tensor) -> torch.Tensor:
     """Plain version: y[s, i, :] = sum_k vals[s, k, i] * x[s, i + off_k, :]."""
     return dia_spmv_reference(A.values, x, A.offsets)
+
+
+def spmm_ell(A: BatchedELL, x: torch.Tensor) -> torch.Tensor:
+    """Plain version: y[s, i, :] = sum_j vals[s, j, i] * x[s, cols[s, j, i], :]."""
+    return ell_spmv_reference(A.values, A.cols, x)
 
 
 def spmm_dense(A: BatchedDense, x: torch.Tensor) -> torch.Tensor:
@@ -34,6 +45,8 @@ def spmm(A, x: torch.Tensor) -> torch.Tensor:
             y = dia_spmv(A.values, x[:, :, 0].contiguous(), A.offsets)
             return y[:, :, None]
         return spmm_dia(A, x)
+    if isinstance(A, BatchedELL):
+        return ell_spmv(A.values, A.cols, x.contiguous())
     if isinstance(A, BatchedDense):
         return spmm_dense(A, x)
     raise TypeError(f"unsupported matrix type {type(A)}")

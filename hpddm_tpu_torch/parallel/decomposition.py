@@ -8,7 +8,9 @@ mathematically the reference's sum-reduce of duplicated unknowns
 (HPDDM_subdomain.hpp:115-130), with a fixed reduction order.
 
 This slice ports the general path: the caller's local numbering is kept
-(``renumber=False``) and there is no structured-grid plan.
+(``renumber=False``) and there is no structured-grid plan. The optional
+``pexch`` plan routes the exchange of CUDA tensors through the one-pass
+kernel (parallel/pexchange.py); ``Schwarz`` attaches it for ELL operators.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from hpddm_tpu_torch.device import DEFAULT, as_device
 from hpddm_tpu_torch.dtypes import as_torch_dtype
 
 
@@ -64,6 +67,8 @@ class Decomposition:
         of the other copies of slot (s, k); sentinel S * m_max (a zero pad).
     inv_map : (S, n_max) int64, interface slot of each local dof, or m_max.
     is_if : (S, n_max) bool.
+    pexch : the one-pass exchange plan (parallel/pexchange.ExchangePlan),
+        or None.
 
     Index tensors are int64 (torch's index type); their values equal the
     JAX package's int32 arrays.
@@ -85,6 +90,7 @@ class Decomposition:
     n_global: int
     k_max: int
     sub_shifts: Tuple[int, ...] = ()
+    pexch: Optional[object] = None
 
     @property
     def device(self) -> torch.device:
@@ -100,7 +106,7 @@ class Decomposition:
                         scaling: str = "normalized",
                         renumber: bool = False,
                         dtype=np.float64,
-                        device="cpu") -> "Decomposition":
+                        device=DEFAULT) -> "Decomposition":
         """Build from HPDDM-style neighbor lists (general path).
 
         neighbors[s] = neighbor subdomain ids; mappings[s][j] = local
@@ -112,7 +118,8 @@ class Decomposition:
         if renumber:
             raise NotImplementedError(
                 "renumber=True (the interface-first layout) is not ported "
-                "yet: ROADMAP queue A, slice 3 (unstructured path)")
+                "yet: ROADMAP queue A, slice 5")
+        device = as_device(device)
         S = len(neighbors)
         n_loc = np.asarray(n_loc, dtype=np.int64)
         if n_max is None:

@@ -8,7 +8,11 @@ device, so no collective is needed (the JAX package's ``axis_name=None``):
 
 * ``exchange``: gather the interface values, add the partner copies, write
   the sums back. Fixed reduction order; bitwise equal to the JAX package's
-  general path (``parallel/ops.py:184-237``).
+  general path (``parallel/ops.py:184-237``). With a plan attached
+  (``dec.pexch``, ELL operators) a CUDA tensor takes the one-pass kernel
+  instead (parallel/pexchange.py), as the JAX package sends it to its
+  Pallas exchange (``parallel/ops.py:224-230``); the result is the same
+  to the bit.
 * ``scaled_exchange``: multiply by the POU first (``Schwarz::exchange``).
 * ``weighted_dot`` / ``weighted_norm_sq`` / ``weighted_gram``: the
   POU-weighted reductions of the Krylov loop.
@@ -19,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from hpddm_tpu_torch.parallel.decomposition import Decomposition
+from hpddm_tpu_torch.parallel.pexchange import pexchange
 
 
 def _interface_reduce(dec: Decomposition, vals: torch.Tensor) -> torch.Tensor:
@@ -52,6 +57,8 @@ def exchange(dec: Decomposition, x: torch.Tensor) -> torch.Tensor:
     x: (S, n_max, mu). Afterwards every copy of a shared dof holds the sum
     of all copies; interior dofs are untouched. Returns a new contiguous
     tensor."""
+    if dec.pexch is not None and x.is_cuda:
+        return pexchange(dec.pexch, x.contiguous())
     mu = x.shape[-1]
     idx = dec.if_idx[:, :, None].expand(-1, -1, mu)
     vals = torch.gather(x, 1, idx)

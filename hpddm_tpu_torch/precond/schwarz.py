@@ -15,11 +15,14 @@ runtime methods are plain functions over it:
 * ``compute_residual``: independent residual recomputation
   (HPDDM_schwarz.hpp:761-803).
 
-``Schwarz`` is the setup: decomposition, DIA packing, GenEO (dense pencil),
-``inv`` local factors and the dense Galerkin coarse operator. The other
-setup branches of the JAX package (block-sparse and multilevel coarse
-operators, banded/FFT/Chebyshev local solvers, Lanczos GenEO, the grid
-canvas) raise ``NotImplementedError`` naming their slice in ROADMAP.md.
+``Schwarz`` is the setup: decomposition, DIA or ELL packing (with the
+one-pass exchange plan for ELL operators), GenEO (dense pencil), ``inv`` local factors and the dense
+Galerkin coarse operator. It puts everything on the card unless the
+caller passes ``device="cpu"``. The other setup branches of the JAX
+package (block-sparse and multilevel coarse operators, banded/FFT/
+Chebyshev local solvers, Lanczos GenEO, the grid canvas, the
+interface-first layout) raise ``NotImplementedError`` naming their slice
+in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -33,14 +36,16 @@ import scipy.sparse as sp
 import torch
 
 from hpddm_tpu_torch.core.csr import MatrixCSR
-from hpddm_tpu_torch.core.formats import (batched_dense_from,
+from hpddm_tpu_torch.core.formats import (BatchedELL, batched_dense_from,
                                           pack_local_matrices)
+from hpddm_tpu_torch.device import DEFAULT, as_device
 from hpddm_tpu_torch.dtypes import HPDDM_EPS, HPDDM_PEN, as_torch_dtype
 from hpddm_tpu_torch.ops.local_solve import LocalSolver, invert
 from hpddm_tpu_torch.ops.spmv import spmm
 from hpddm_tpu_torch.options import Options
 from hpddm_tpu_torch.parallel.decomposition import Decomposition
 from hpddm_tpu_torch.parallel.ops import exchange, scaled_exchange
+from hpddm_tpu_torch.parallel.pexchange import build_plan
 
 # dense Galerkin assembly memory cap: above it the JAX package switches to
 # the block-sparse coarse operator, which this slice does not have
@@ -68,7 +73,7 @@ class CoarseState:
 @dataclasses.dataclass(frozen=True)
 class SchwarzState:
     dec: Decomposition
-    A: object                     # batched local matrices (BatchedDIA/Dense)
+    A: object                     # batched local matrices (DIA/ELL/Dense)
     solver: LocalSolver
     coarse: Optional[CoarseState]
     variant: str                  # 'ras' | 'asm' | 'oras' | 'soras' | 'osm' | 'none'
@@ -110,7 +115,7 @@ def _coarse_solve(co: CoarseState, c: torch.Tensor) -> torch.Tensor:
     with the prefactorized inverse."""
     if co.mode != "direct":
         raise _not_ported(f"coarse mode {co.mode!r}",
-                          "ROADMAP queue A, slices 2 and 4")
+                          "ROADMAP queue A, slices 3 and 4")
     return co.E_inv @ c.to(co.E_inv.dtype)
 
 
@@ -216,13 +221,13 @@ class Schwarz:
                  fmt: str = "auto",
                  optimized_mats: Optional[Sequence[MatrixCSR]] = None,
                  renumber: bool = False, prefix: str = "",
-                 device="cpu"):
+                 device=DEFAULT):
         if optimized_mats is not None:
             raise _not_ported("optimized_mats (ORAS/SORAS user matrices)",
                               "ROADMAP queue A, slice 5")
         self.opt = options if options is not None else Options()
         self.prefix = prefix
-        self.device = torch.device(device)
+        self.device = as_device(device)
         if self.opt.val("gmv_dtype") not in (None, "same"):
             raise _not_ported("-hpddm_gmv_dtype", "ROADMAP queue B, cells")
         n_loc = [m.n for m in mats]
@@ -235,8 +240,19 @@ class Schwarz:
         self.n_max = self.dec.n_max
         self.A = pack_local_matrices(mats, n_max=self.n_max, fmt=fmt,
                                      device=self.device)
+        self._try_pexchange_plan()
         self._deflation_vectors: Optional[List[np.ndarray]] = None
         self.timings: Dict[str, float] = {}
+
+    def _try_pexchange_plan(self) -> None:
+        """Attach the one-pass exchange plan (parallel/pexchange.py) for an
+        ELL operator, as ``_try_pexchange_plan`` of the JAX package
+        (``hpddm_tpu/precond/schwarz.py:643-663``); ``exchange`` runs it on
+        CUDA tensors. DIA (stencil) operators keep the plain exchange, as
+        they do in the JAX package."""
+        if isinstance(self.A, BatchedELL):
+            self.dec = dataclasses.replace(self.dec,
+                                           pexch=build_plan(self.dec))
 
     def _timed(self, phase: str, t0: float) -> None:
         _sync(self.device)
@@ -285,8 +301,9 @@ class Schwarz:
         -hpddm_geneo_force_uniformity max (default: seeded with 42, as the
         JAX package). ``neumann`` must be genuine SPSD local matrices.
 
-        The dense pencil runs one subdomain at a time, so the device holds
-        a few n_max^2 blocks, not S of them.
+        The dense pencil runs one subdomain at a time, each Neumann matrix
+        packed dense as the JAX package packs them, so the device holds a
+        few n_max^2 blocks, not S of them.
         """
         from hpddm_tpu_torch.precond.geneo import (scale_into_overlap,
                                                    select_nu,
@@ -311,14 +328,15 @@ class Schwarz:
                 else "dense"
         if method != "dense":
             raise _not_ported(f"GenEO method {method!r} (n_max={self.n_max})",
-                              "ROADMAP queue A, slice 2")
-        neu = pack_local_matrices(neumann, n_max=self.n_max, fmt="dia",
-                                  pad_identity=True, device=self.device)
+                              "ROADMAP queue A, slice 3")
         lam_np = np.empty((S, nu_max_req))
         V_np = np.empty((S, self.n_max, nu_max_req))
         for s in range(S):
             sub = slice(s, s + 1)
-            lam, V = solve_gevp_dense(batched_dense_from(neu, sub),
+            A_neu = pack_local_matrices([neumann[s]], n_max=self.n_max,
+                                        fmt="dense", pad_identity=True,
+                                        device=self.device).values
+            lam, V = solve_gevp_dense(A_neu,
                                       scale_into_overlap(self.A, self.dec,
                                                          sub),
                                       nu_max_req)
@@ -359,7 +377,7 @@ class Schwarz:
         kind = opt.val("local_solver", prefix=pfx)
         if kind != "inv":
             raise _not_ported(f"local_solver={kind!r}",
-                              "ROADMAP queue A, slices 2 and 5")
+                              "ROADMAP queue A, slices 3 and 5")
         # one subdomain at a time: the dense copy of A_s lives only while
         # its inverse is computed
         factor = torch.empty((self.dec.S, self.n_max, self.n_max), dtype=dt,
@@ -393,7 +411,7 @@ class Schwarz:
         opt = self.opt
         lvl = opt.level(2)
         if (opt.val("coarse_assembly") or "dense") != "dense":
-            raise _not_ported("coarse_assembly=bsr", "ROADMAP queue A, slice 2")
+            raise _not_ported("coarse_assembly=bsr", "ROADMAP queue A, slice 3")
         if "krylov_method" in lvl or opt.set("level_2_tol"):
             raise _not_ported("iterative (level-2) coarse solves",
                               "ROADMAP queue A, slice 4")
@@ -401,7 +419,7 @@ class Schwarz:
             raise _not_ported("-hpddm_level_2_dump_matrix",
                               "ROADMAP queue A, slice 5")
         if opt.val("coarse_dtype") not in (None, "same"):
-            raise _not_ported("-hpddm_coarse_dtype", "ROADMAP queue A, slice 2")
+            raise _not_ported("-hpddm_coarse_dtype", "ROADMAP queue A, slice 3")
         dec = self.dec
         S = dec.S
         if self._deflation_vectors is None:
@@ -415,7 +433,7 @@ class Schwarz:
             raise _not_ported(
                 f"a {bytes_dense / (1 << 30):.1f} GB dense Galerkin tensor "
                 "(the JAX package switches to the block-sparse coarse "
-                "operator)", "ROADMAP queue A, slice 2")
+                "operator)", "ROADMAP queue A, slice 3")
         Z = np.zeros((S, self.n_max, nu_max), dtype=np.asarray(vecs[0]).dtype)
         for s, v in enumerate(vecs):
             Z[s, : v.shape[0], : v.shape[1]] = v

@@ -1,24 +1,30 @@
-"""The CUDA DIA kernel on the card (skipped without a CUDA GPU).
+"""The CUDA kernels on the card (skipped without a CUDA GPU): DIA SpMV (B1),
+ELL SpMV (B4) and the one-pass exchange (B5).
 
 This file imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
-(``--noconftest``: tests/conftest.py configures JAX.) The kernel sums in
-the plain version's order with separately rounded products and sums, so
+(``--noconftest``: tests/conftest.py configures JAX.) Each kernel sums in
+its plain version's order with separately rounded products and sums, so
 the two agree bitwise on the card.
 """
+
+import dataclasses
+
 
 import numpy as np
 import pytest
 import torch
 
 from hpddm_tpu_torch.core.formats import BatchedDIA
-from hpddm_tpu_torch.models import diffusion2d
+from hpddm_tpu_torch.models import diffusion2d, unstructured
 from hpddm_tpu_torch.ops import dia_spmv as kmod
-from hpddm_tpu_torch.parallel.ops import scaled_exchange
+from hpddm_tpu_torch.ops import ell_spmv as ek
+from hpddm_tpu_torch.parallel import pexchange as pk
+from hpddm_tpu_torch.parallel.ops import exchange, scaled_exchange
 from hpddm_tpu_torch.precond.schwarz import Schwarz, gmv
-from hpddm_tpu_torch.ops.spmv import spmm, spmm_dia
+from hpddm_tpu_torch.ops.spmv import spmm, spmm_dia, spmm_ell
 
 pytestmark = pytest.mark.cuda
 
@@ -85,3 +91,80 @@ def test_gmv_through_kernel_matches_plain(cuda):
     y = gmv(state, x)
     assert kmod.launches == before + 1
     assert torch.equal(y, scaled_exchange(sch.dec, spmm_dia(sch.A, x)))
+
+
+@pytest.fixture(scope="module")
+def unstr():
+    """The Schwarz setup of a small unstructured problem on the card (ELL
+    operator, exchange plan attached)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    gen = unstructured.generate(4, 30, 30, overlap=2, with_neumann=False)
+    return Schwarz(gen.mats, gen.neighbors, gen.mappings, d=gen.d,
+                   device="cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("S,w,n,mu", [(8, 11, 680, 1), (8, 11, 680, 3),
+                                      (64, 11, 4640, 1), (3, 7, 1000, 2),
+                                      (2, 5, 300, 9)])
+def test_ell_kernel_matches_plain_bitwise(cuda, S, w, n, mu, dtype):
+    rng = np.random.default_rng(S + n + mu)
+    rows = np.arange(n)[None, None, :]
+    cols = np.clip(rows + rng.integers(-40, 41, size=(S, w, n)), 0, n - 1)
+    vals = rng.normal(size=(S, w, n))
+    vals[0, :, 0] = 0.0                       # an all-padding row
+    cols[0, :, 0] = 0
+    vals = torch.as_tensor(vals, device=cuda).to(dtype)
+    cols = torch.as_tensor(cols, device=cuda, dtype=torch.int32)
+    x = torch.as_tensor(rng.normal(size=(S, n, mu)), device=cuda).to(dtype)
+    before = ek.launches
+    y = ek.ell_spmv(vals, cols, x)
+    torch.cuda.synchronize()
+    assert ek.launches == before + 1
+    assert torch.equal(y, ek.ell_spmv_reference(vals, cols, x))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mu", [1, 3])
+def test_pexchange_kernel_matches_plain_bitwise(unstr, mu, dtype):
+    dec = unstr.dec
+    x = torch.as_tensor(np.random.default_rng(mu).normal(
+        size=(dec.S, dec.n_max, mu)), device="cuda").to(dtype)
+    before = pk.launches
+    y = pk.pexchange(dec.pexch, x)
+    torch.cuda.synchronize()
+    assert pk.launches == before + 1
+    assert torch.equal(y, pk.pexchange_reference(dec.pexch, x))
+    assert torch.equal(y, exchange(dataclasses.replace(dec, pexch=None), x))
+
+
+def test_ell_spmm_and_planned_exchange_never_run_plain_on_cuda(unstr):
+    """On the card every ELL product goes to the ELL kernel and every
+    exchange with a plan to the exchange kernel: the launch counts grow,
+    and a dtype the kernels do not take raises instead of running the
+    plain version."""
+    A, dec = unstr.A, unstr.dec
+    x = torch.ones((dec.S, dec.n_max, 2), device="cuda", dtype=torch.float64)
+    before = (ek.launches, pk.launches)
+    y = spmm(A, x)
+    z = exchange(dec, y)
+    assert (ek.launches, pk.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(y, spmm_ell(A, x))
+    assert torch.equal(z, exchange(dataclasses.replace(dec, pexch=None), y))
+    with pytest.raises(TypeError, match="dtypes"):
+        spmm(A, x.float())
+    with pytest.raises(TypeError, match="dtype"):
+        exchange(dec, x.half())
+
+
+def test_unstructured_gmv_through_kernels_matches_plain(unstr):
+    state = unstr.build()
+    x = torch.as_tensor(np.random.default_rng(0).normal(
+        size=(state.dec.S, unstr.n_max, 1)), device="cuda")
+    before = (ek.launches, pk.launches)
+    y = gmv(state, x)
+    assert (ek.launches, pk.launches) == (before[0] + 1, before[1] + 1)
+    plain = scaled_exchange(dataclasses.replace(state.dec, pexch=None),
+                            spmm_ell(state.A, x))
+    assert torch.equal(y, plain)

@@ -29,7 +29,7 @@ def _decs(S, Nx, Ny):
     return (JaxDec.from_subdomains(rg.neighbors, rg.mappings, rg.n_loc,
                                    d=rg.d),
             Decomposition.from_subdomains(g.neighbors, g.mappings, g.n_loc,
-                                          d=g.d))
+                                          d=g.d, device="cpu"))
 
 
 @pytest.mark.parametrize("mu", [1, 3])
@@ -77,3 +77,25 @@ def test_weighted_reductions(S, Nx, Ny):
     np.testing.assert_allclose(ops.weighted_gram(dec, tV, ty).numpy(),
                                np.einsum("ksnm,snm->km", V, d[:, :, None] * y),
                                rtol=1e-13)
+
+
+@pytest.mark.parametrize("S,Nx,Ny", CONFIGS[:2])
+def test_write_back_matches_merge_scatter(S, Nx, Ny):
+    """B6: the JAX package's Pallas write-back kernel (``merge_scatter``,
+    interpret mode) and the port's write-back stage of the exchange
+    (``_scatter_rows``) put the same slot values at the same positions:
+    bitwise. Invalid slots point past the end and are dropped by both."""
+    from hpddm_tpu.ops.pallas_exchange import ScatterPlan, merge_scatter
+    _, dec = _decs(S, Nx, Ny)
+    rng = np.random.default_rng(S)
+    x = rng.normal(size=(S, dec.n_max, 1))
+    vals = rng.normal(size=(S, dec.m_max, 1))
+    total = S * dec.n_max
+    pos = (np.arange(S)[:, None] * dec.n_max + dec.if_idx.numpy())
+    pos = np.where(dec.if_mask.numpy(), pos, total)
+    plan = ScatterPlan.build(pos.reshape(-1), total, block_rows=8)
+    want = np.asarray(merge_scatter(plan, jnp.asarray(x.reshape(-1)),
+                                    jnp.asarray(vals.reshape(-1)),
+                                    interpret=True))
+    got = ops._scatter_rows(dec, torch.as_tensor(x), torch.as_tensor(vals))
+    assert got.numpy().reshape(-1).tobytes() == want.tobytes()

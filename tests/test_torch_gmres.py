@@ -17,6 +17,9 @@ crossing of the tolerance is far from a tie):
   same counts at the oracle on the card (``chip_smoke.py``).
 """
 
+import importlib.util
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -27,7 +30,6 @@ from hpddm_tpu.options import Options as JaxOptions
 from hpddm_tpu.precond import schwarz as jax_sz
 from hpddm_tpu.solvers.krylov import solve as jax_solve
 
-import chip_smoke
 from hpddm_tpu_torch import interop
 from hpddm_tpu_torch.examples import schwarz as driver
 from hpddm_tpu_torch.models import diffusion2d
@@ -37,6 +39,22 @@ from hpddm_tpu_torch.solvers.krylov import solve
 from test_torch_schwarz import jax_state_arrays
 
 TOLS = (1e-6, 1e-8)
+
+
+def root_chip_smoke():
+    """The repository root's chip_smoke.py (the port's GPU smoke run),
+    loaded by path: ``import chip_smoke`` can find ``tools/chip_smoke.py``
+    instead, which tests/test_reference_parity.py puts first on sys.path
+    when the whole suite is collected in one process."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("root_chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+chip_smoke = root_chip_smoke()
 
 
 def _rhs(gen, n_max):
@@ -73,7 +91,9 @@ def small():
 def oracle():
     """(JAX state, the port's copy of it, rhs, rtol of x)."""
     jstate, f = _jax_setup(4, 100)
-    return (jstate, interop.state_from_numpy(jax_state_arrays(jstate)), f,
+    return (jstate,
+            interop.state_from_numpy(jax_state_arrays(jstate), device="cpu"),
+            f,
             1e-10)
 
 

@@ -33,8 +33,8 @@ CORRECTIONS = ["deflated", "additive", "balanced"]
 
 
 def jax_state_arrays(state):
-    """Flatten a hpddm_tpu SchwarzState (DIA, inv, dense direct coarse) to
-    the numpy dict of interop.state_from_numpy."""
+    """Flatten a hpddm_tpu SchwarzState (DIA or ELL, inv, dense direct
+    coarse) to the numpy dict of interop.state_from_numpy."""
     dec = state.dec
     out = {k: np.asarray(getattr(dec, k)) for k in (
         "n_loc", "d", "if_idx", "if_gid", "if_mask", "ov_mask", "mult",
@@ -42,7 +42,10 @@ def jax_state_arrays(state):
     out.update({k: getattr(dec, k) for k in interop.DEC_INT_KEYS})
     out["sub_shifts"] = dec.sub_shifts
     out["A_values"] = np.asarray(state.A.values)
-    out["A_offsets"] = state.A.offsets
+    if hasattr(state.A, "cols"):                         # BatchedELL
+        out["A_cols"] = np.asarray(state.A.cols)
+    else:
+        out["A_offsets"] = state.A.offsets
     out["factor"] = np.asarray(state.solver.factor)
     out["variant"] = state.variant
     out["bc"] = None if state.bc is None else np.asarray(state.bc)
@@ -146,7 +149,7 @@ def test_gmres_on_jax_state(jax_setup, ortho):
     the solution at rtol 1e-10 (identical operators; only summation order
     differs)."""
     jstate = _jax_state(jax_setup, "deflated")
-    state = interop.state_from_numpy(jax_state_arrays(jstate))
+    state = interop.state_from_numpy(jax_state_arrays(jstate), device="cpu")
     f = _rhs(jax_setup[0], jstate.dec.n_max)
     jres = jax_solve(jstate, jnp.asarray(f),
                      opt=JaxOptions(tol=1e-8, orthogonalization=ortho,
@@ -175,9 +178,11 @@ def test_geneo_eigenvalues_match_jax(jax_setup):
     gen, jsch = jax_setup
     jA_neu = jdense(jpack(gen.neumann, n_max=jsch.n_max, fmt="dense"))
     jlam, _ = jgevp(jA_neu, jscale(jsch.A, jsch.dec), 6)
-    psch = sz.Schwarz(gen.mats, gen.neighbors, gen.mappings, d=gen.d)
+    psch = sz.Schwarz(gen.mats, gen.neighbors, gen.mappings, d=gen.d,
+                      device="cpu")
     A_neu = batched_dense_from(pack_local_matrices(gen.neumann,
-                                                   n_max=psch.n_max))
+                                                   n_max=psch.n_max,
+                                                   device="cpu"))
     lam, V = solve_gevp_dense(A_neu, scale_into_overlap(psch.A, psch.dec), 6)
     np.testing.assert_allclose(lam.numpy(), np.asarray(jlam), rtol=1e-9)
     np.testing.assert_allclose(torch.linalg.norm(V, dim=1).numpy(), 1.0,
@@ -188,15 +193,16 @@ def test_unported_branches_raise(port_setup):
     gen, _ = port_setup
     with pytest.raises(NotImplementedError, match="local_solver"):
         sz.Schwarz(gen.mats, gen.neighbors, gen.mappings, d=gen.d,
-                   options=Options(local_solver="lu")).build()
+                   options=Options(local_solver="lu"), device="cpu").build()
     with pytest.raises(NotImplementedError, match="bsr"):
         sch = sz.Schwarz(gen.mats, gen.neighbors, gen.mappings, d=gen.d,
                          options=Options(schwarz_coarse_correction="deflated",
-                                         coarse_assembly="bsr"))
+                                         coarse_assembly="bsr"),
+                         device="cpu")
         sch.build()
     with pytest.raises(NotImplementedError, match="lanczos"):
-        sz.Schwarz(gen.mats, gen.neighbors, gen.mappings, d=gen.d) \
-            .solve_gevp(gen.neumann, method="lanczos")
+        sz.Schwarz(gen.mats, gen.neighbors, gen.mappings, d=gen.d,
+                   device="cpu").solve_gevp(gen.neumann, method="lanczos")
 
 
 @pytest.mark.parametrize("options,call,match", [
@@ -212,6 +218,6 @@ def test_left_out_options_raise(port_setup, options, call, match):
     estimate, and factors in another dtype than the operator's."""
     gen, _ = port_setup
     sch = sz.Schwarz(gen.mats, gen.neighbors, gen.mappings, d=gen.d,
-                     options=Options(**options))
+                     options=Options(**options), device="cpu")
     with pytest.raises(NotImplementedError, match=match):
         call(sch, gen)

@@ -58,7 +58,8 @@ def test_decomposition_arrays_equal(S, Nx, Ny, dtype):
     ref = JaxDec.from_subdomains(ref_gen.neighbors, ref_gen.mappings,
                                  ref_gen.n_loc, d=ref_gen.d, dtype=dtype)
     dec = Decomposition.from_subdomains(gen.neighbors, gen.mappings,
-                                        gen.n_loc, d=gen.d, dtype=dtype)
+                                        gen.n_loc, d=gen.d, dtype=dtype,
+                                        device="cpu")
     for key in ("S", "n_max", "m_max", "n_if", "n_global", "k_max",
                 "sub_shifts"):
         assert getattr(dec, key) == getattr(ref, key), key
@@ -73,16 +74,23 @@ def test_decomposition_arrays_equal(S, Nx, Ny, dtype):
     assert dec.d.numpy().tobytes() == np.asarray(ref.d).tobytes()
 
 
-@pytest.mark.parametrize("fmt", ["auto", "dia", "dense"])
+@pytest.mark.parametrize("fmt", ["auto", "dia", "ell", "dense"])
 @pytest.mark.parametrize("S,Nx,Ny", CONFIGS)
 def test_pack_local_matrices_equal(S, Nx, Ny, fmt):
     ref_gen, gen = _gen_pair(S, Nx, Ny)
     n_max = max(gen.n_loc)
     ref = jax_pack(ref_gen.mats, n_max=n_max, fmt=fmt)
-    got = pack_local_matrices(gen.mats, n_max=n_max, fmt=fmt)
+    got = pack_local_matrices(gen.mats, n_max=n_max, fmt=fmt, device="cpu")
     assert type(got).__name__ == type(ref).__name__
-    assert got.values.numpy().tobytes() == np.asarray(ref.values).tobytes()
-    if fmt != "dense":
+    # an ELL batch is stored slot-major: the transpose of the JAX layout
+    vals = got.values.transpose(1, 2) if type(got).__name__ == "BatchedELL" \
+        else got.values
+    assert vals.contiguous().numpy().tobytes() == \
+        np.asarray(ref.values).tobytes()
+    if fmt == "ell":
+        assert got.cols.transpose(1, 2).contiguous().numpy().tobytes() == \
+            np.asarray(ref.cols).tobytes()
+    elif fmt != "dense":
         assert got.offsets == ref.offsets
         assert got.values.is_contiguous()
 
@@ -129,4 +137,4 @@ def test_decomposition_on_device_argument():
     assert dec.device.type == "cpu" and dec.d.dtype == torch.float64
     with pytest.raises(NotImplementedError, match="renumber"):
         Decomposition.from_subdomains(gen.neighbors, gen.mappings, gen.n_loc,
-                                      d=gen.d, renumber=True)
+                                      d=gen.d, renumber=True, device="cpu")

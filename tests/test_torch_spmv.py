@@ -29,7 +29,8 @@ import jax.numpy as jnp
 @pytest.mark.parametrize("S,Nx,Ny", [(4, 40, 40), (2, 100, 60)])
 def test_spmm_matches_jax_and_pallas(S, Nx, Ny, mu):
     ref_A = jax_pack(jax_d2.generate(S, Nx, Ny, overlap=1).mats)
-    A = pack_local_matrices(diffusion2d.generate(S, Nx, Ny, overlap=1).mats)
+    A = pack_local_matrices(diffusion2d.generate(S, Nx, Ny, overlap=1).mats,
+                            device="cpu")
     n_max = A.n_max
     x = np.random.default_rng(S * 1000 + mu).normal(size=(S, n_max, mu))
     assert kmod.launches == 0
@@ -78,9 +79,25 @@ def test_dia_spmv_cpu_is_plain_bitwise():
 def test_batched_dense_from_matches_jax():
     from hpddm_tpu.core.formats import batched_dense_from as jax_dense
     gen = diffusion2d.generate(4, 30, 30, overlap=1)
-    A = pack_local_matrices(gen.mats)
+    A = pack_local_matrices(gen.mats, device="cpu")
     ref = np.asarray(jax_dense(jax_pack(jax_d2.generate(4, 30, 30,
                                                         overlap=1).mats)))
     assert batched_dense_from(A).numpy().tobytes() == ref.tobytes()
     np.testing.assert_array_equal(batched_dense_from(A, slice(1, 3)).numpy(),
                                   ref[1:3])
+
+
+@pytest.mark.parametrize("S,Nx,Ny", [(4, 40, 40), (2, 100, 60)])
+def test_dia_spmv_matches_whole_row_pallas_kernel(S, Nx, Ny):
+    """B7: the JAX package's whole-row DIA kernel (``_dia_spmv_1rhs``,
+    interpret mode) computes B1's function: the port's plain version of B1
+    agrees at atol 1e-11, the tolerance of tests/test_pallas.py."""
+    from hpddm_tpu.ops.pallas_spmv import _dia_spmv_1rhs
+    A = pack_local_matrices(diffusion2d.generate(S, Nx, Ny, overlap=1).mats,
+                            device="cpu")
+    x = np.random.default_rng(S).normal(size=(S, A.n_max))
+    want = np.asarray(_dia_spmv_1rhs(jnp.asarray(A.values.numpy()),
+                                     jnp.asarray(x), A.offsets,
+                                     interpret=True))
+    got = kmod.dia_spmv_reference(A.values, torch.as_tensor(x), A.offsets)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-11, rtol=0)
