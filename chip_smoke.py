@@ -31,14 +31,31 @@ Phases (any failure exits non-zero before the last line is printed):
    B4/B5 launch counts, B4 and B5 against their plain versions at mu=1
    and at the coarse assembly's panel width (mu = coarse size), each
    against torch.sparse.mm on the matrix of the same linear map, and one
-   gmv.
+   gmv;
+9. kernel vs plain, slice 4: the DIA SpMM kernel in both panel layouts,
+   (S, n, mu) (B2, ``dia_spmm``) and (S, mu, n) (B3, ``dia_spmm_muT``),
+   against the plain version in f32 and f64 at phase 3's shapes and
+   mu in {2, 3, 4, 8, 9}, and mu=640 (the coarse panel) at card size;
+10. multi-RHS parity: every method and sequence of ``MULTI_ITS`` at the
+   oracle in f64 must take the JAX package's CPU-f64 counts per
+   right-hand side (one iteration of slack for ``MULTI_SLACK``), with
+   recomputed residuals <= 1e-5 per right-hand side (``MULTI_RES`` where
+   the method stops on another residual); then f32 gmres and bgmres at
+   mu=4;
+11. multi-RHS card scale, on phase 5's state: pseudo-block gmres and
+   bgmres over 4 consistent random right-hand sides (best of 3 after a
+   warm-up; time per right-hand side beside phase 5's single-RHS solve),
+   a recycled gcrodr sequence at mu=1, peak memory, launch counts and
+   plain-version calls (must be 0), B2 at mu=4 and at the coarse panel
+   against its plain version, its bound and torch.sparse.mm, one gmv at
+   mu=4 and the time of bgmres's block least squares.
 
-Phase 5 drives the DIA path and phase 8 the unstructured path, each with
-its kernels' launch counts set to 0 just before it and read just after;
-comparisons and timings come after the counts are read. The script prints
-one JSON line with the kernels' results (time, plain time, bound, library
-time, launches, error), the card's name and power limit as nvidia-smi
-reports them, and last ``{"ok": true, "device": {...}}``.
+Phase 5 drives the DIA path, phase 8 the unstructured path and phase 11
+the multi-RHS path, each with its kernels' launch counts set to 0 just
+before it and read just after; comparisons and timings come after the
+counts are read. The script prints one JSON line with the kernels' results (time, plain time,
+bound, library time, launches, error), the card's name and power limit
+as nvidia-smi reports them, and last ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -59,6 +76,57 @@ ORACLE_ITS = {1e-6: 19, 1e-8: 22}
 # k-way, GenEO nu=8, deflated); tests/test_torch_unstructured.py checks
 # them against hpddm_tpu
 UNSTR_ITS = {1e-6: 8, 1e-8: 10}
+
+# iteration counts per right-hand side of the JAX package on the CPU in f64
+# at the oracle (100x100, S=4, GenEO nu=10, deflated, tol 1e-6), one list
+# per solve of a sequence that shares one Options object (the recycled
+# space of gcrodr/bgcrodr persists in it): name -> (right-hand side, solve
+# options, setup options, counts). "f4" is the four random right-hand
+# sides of diffusion2d.generate(..., mu=4) made consistent, "f1" the
+# closed-form one. tests/test_torch_gmres.py checks them against
+# hpddm_tpu.
+MULTI_ITS = {
+    "gmres": ("f4", {}, {}, [[20, 19, 19, 19]]),
+    "bgmres": ("f4", {"krylov_method": "bgmres"}, {}, [[14] * 4]),
+    "bcg": ("f4", {"krylov_method": "bcg"}, {}, [[22] * 4]),
+    "bfbcg": ("f4", {"krylov_method": "bfbcg"}, {}, [[27] * 4]),
+    "richardson": ("f4", {"krylov_method": "richardson"}, {}, [[100] * 4]),
+    "gcrodr recycle 20": ("f4", {"krylov_method": "gcrodr", "recycle": 20},
+                          {}, [[20, 19, 19, 19]]),
+    "bgcrodr recycle 20": ("f4", {"krylov_method": "bgcrodr", "recycle": 20},
+                           {}, [[14] * 4]),
+    "flexible gmres": ("f4", {"variant": "flexible"}, {},
+                       [[20, 19, 19, 19]]),
+    "left gmres": ("f4", {"variant": "left"}, {}, [[16, 15, 16, 16]]),
+    "gmres restart 10": ("f4", {"gmres_restart": 10}, {},
+                         [[24, 23, 24, 24]] * 2),
+    "gcrodr restart 10 recycle 5": (
+        "f4", {"krylov_method": "gcrodr", "gmres_restart": 10, "recycle": 5},
+        {}, [[20] * 4, [13, 14, 13, 13]]),
+    # strategy B at recycle 2: at recycle 5 its harmonic Ritz selection is
+    # ill-conditioned here (a 1e-15 change of b moves the JAX package's own
+    # counts by up to 4)
+    "gcrodr restart 10 recycle 2 strategy B": (
+        "f4", {"krylov_method": "gcrodr", "gmres_restart": 10, "recycle": 2,
+               "recycle_strategy": "B"}, {}, [[20] * 4, [20, 21, 21, 20]]),
+    "bgmres restart 10": ("f4", {"krylov_method": "bgmres",
+                                 "gmres_restart": 10}, {}, [[18] * 4] * 2),
+    "bgcrodr restart 10 recycle 5": (
+        "f4", {"krylov_method": "bgcrodr", "gmres_restart": 10,
+               "recycle": 5}, {}, [[15] * 4, [10] * 4]),
+    "enlarged k=4": ("f1", {"enlarge_krylov_subspace": 4}, {}, [[14]]),
+    "cg (gmres under RAS)": ("f1", {"krylov_method": "cg"}, {}, [[19]]),
+    "coarse_dtype float32 (flexible gmres)": (
+        "f1", {}, {"coarse_dtype": "float32"}, [[19]]),
+}
+# methods whose count may differ by one on the card (the eigh and harmonic
+# Ritz truncations of block CG and of recycling can flip on rounding)
+MULTI_SLACK = ("bfbcg", "gcrodr", "bgcrodr")
+# the JAX package's own largest recomputed relative residual where the
+# method stops on another residual than the true one (left GMRES on the
+# preconditioned residual) or at max_it (Richardson); every other solve is
+# held to 1e-5
+MULTI_RES = {"left gmres": 7.901e-05, "richardson": 1.223e-05}
 
 KERNEL_RTOL = {"float64": 1e-12, "float32": 1e-5}
 
@@ -113,6 +181,22 @@ def block_csr(rows, cols, vals, N):
     return coo.to_sparse_csr()
 
 
+def dia_csr(vals, offs):
+    """The block-diagonal CSR matrix of a DIA batch vals (S, nd, n)."""
+    import torch
+
+    S, nd, n = vals.shape
+    i = torch.arange(n, device=vals.device)
+    base = (torch.arange(S, device=vals.device) * n)[:, None]
+    trip = [[], [], []]
+    for k, off in enumerate(offs):
+        ok = (i + off >= 0) & (i + off < n)
+        trip[0].append((base + i[ok]).reshape(-1))
+        trip[1].append((base + i[ok] + off).reshape(-1))
+        trip[2].append(vals[:, k, ok].reshape(-1))
+    return block_csr(*(torch.cat(t) for t in trip), S * n)
+
+
 def library_ms(csr, x):
     """Cold milliseconds of torch.sparse.mm(csr, x), or None (printed) when
     the installed PyTorch cannot run it on the card."""
@@ -135,7 +219,13 @@ def kernel_record(name, source, replaces, launches, max_err, ms, plain_ms,
             "library_ms": lib_ms}
 
 
-def build_problem(S, N, nu, dtype, device, timings=None):
+def build_problem(S, N, nu, dtype, device, timings=None, mu=0,
+                  schwarz=None):
+    """(options, state, right-hand side) of the grid main path: the
+    closed-form right-hand side (S, n_max, 1), or with mu > 0 the mu random
+    ones of diffusion2d.generate made consistent. With ``schwarz`` a list,
+    the Schwarz setup object is appended to it (to rebuild the state with
+    other setup options)."""
     import torch
     from hpddm_tpu_torch.models import diffusion2d
     from hpddm_tpu_torch.options import Options
@@ -143,7 +233,7 @@ def build_problem(S, N, nu, dtype, device, timings=None):
 
     t = time.perf_counter()
     gen = diffusion2d.generate(S, N, N, overlap=1, with_neumann=True,
-                               dtype=dtype)
+                               dtype=dtype, mu=mu)
     t_gen = time.perf_counter() - t
     t = time.perf_counter()
     opt = Options(schwarz_coarse_correction="deflated", geneo_nu=nu)
@@ -153,24 +243,23 @@ def build_problem(S, N, nu, dtype, device, timings=None):
     t_dec = time.perf_counter() - t
     sch.solve_gevp(gen.neumann)
     state = sch.build()
-    f = np.zeros((S, sch.n_max, 1), dtype=dtype)
+    f = np.zeros((S, sch.n_max, max(mu, 1)), dtype=dtype)
     for s in range(S):
         f[s, : gen.n_loc[s]] = gen.f[s]
+    f = torch.as_tensor(f, device=device)
+    if mu:
+        f = sch.exchange_rhs(f)
     if timings is not None:
         timings.update(generate=t_gen, decomposition=t_dec, **sch.timings)
-    return opt, state, torch.as_tensor(f, device=device)
+    if schwarz is not None:
+        schwarz.append(sch)
+    return opt, state, f
 
 
 def checked_residual(state, f, res):
-    """Recomputed relative residual of a solve, after checking that its
-    solution is finite and of the right-hand side's shape."""
-    import torch
-    from hpddm_tpu_torch.precond.schwarz import compute_residual
-
-    check(tuple(res.x.shape) == tuple(f.shape), f"x shape {tuple(res.x.shape)}")
-    check(bool(torch.isfinite(res.x).all()), "non-finite solution")
-    nb, nr = compute_residual(state, res.x, f)
-    return float((nr / nb).max())
+    """Largest recomputed relative residual of a solve's right-hand sides
+    (``checked_residual_per_rhs``)."""
+    return max(checked_residual_per_rhs(state, f, res))
 
 
 def solve_checked(state, f, opt, tol):
@@ -181,19 +270,23 @@ def solve_checked(state, f, opt, tol):
     return res, checked_residual(state, f, res)
 
 
-def phase_kernels():
-    import torch
-    from hpddm_tpu_torch.ops.dia_spmv import dia_spmv, dia_spmv_reference
-
-    cases = [("oracle", 4, 2601, (-50, -1, 0, 1, 50)),
+# the DIA kernels' check shapes: the oracle, the card cell, a ragged n,
+# |offset| >= n, a single and a single shifted diagonal
+DIA_CASES = [("oracle", 4, 2601, (-50, -1, 0, 1, 50)),
              ("card", 64, 4356, (-64, -1, 0, 1, 64)),
              ("ragged n", 3, 1000, (-3, 0, 7)),
              ("|offset| >= n", 2, 300, (-400, -1, 0, 350)),
              ("single diagonal", 5, 777, (0,)),
              ("single shifted diagonal", 2, 513, (9,))]
+
+
+def phase_kernels():
+    import torch
+    from hpddm_tpu_torch.ops.dia_spmv import dia_spmv, dia_spmv_reference
+
     rng = np.random.default_rng(1234)
     worst = 0.0
-    for name, S, n, offs in cases:
+    for name, S, n, offs in DIA_CASES:
         vals_np = rng.normal(size=(S, len(offs), n))
         x_np = rng.normal(size=(S, n))
         for dt in (torch.float64, torch.float32):
@@ -245,14 +338,16 @@ def phase_card_scale():
           "tol 1e-6)")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    kmod.launches = 0                        # the main path's count from here
+    kmod.launches = kmod.spmm_launches = 0   # the main path's counts from here
     timings = {}
     opt, state, f = build_problem(S, N, 10, np.float64, "cuda", timings)
     after_setup = kmod.launches
+    spmm_setup = kmod.spmm_launches          # the coarse assembly's panel
     opt["tol"] = 1e-6
     best, solve_s, res = timed(lambda: solve(state, f, opt=opt), reps=3,
                                warmup=1)
     launches = kmod.launches                 # read just after the main path
+    spmm_launches = kmod.spmm_launches
     rel = checked_residual(state, f, res)
     peak = torch.cuda.max_memory_allocated()
     per_solve = (launches - after_setup) // 4
@@ -261,6 +356,8 @@ def phase_card_scale():
     check(rel <= 1e-5, f"card-scale recomputed rel. residual {rel:.3e}")
     check(per_solve > 0 and launches > after_setup,
           f"kernel launches: setup {after_setup}, after 4 solves {launches}")
+    check(spmm_setup > 0 and spmm_launches == spmm_setup,
+          f"dia_spmm launches: setup {spmm_setup}, in all {spmm_launches}")
     print(f"  n_max {state.dec.n_max}, coarse size "
           f"{state.coarse.E_inv.shape[0]}, DIA offsets {state.A.offsets}")
     print("  setup seconds: " + ", ".join(f"{k} {v:.3f}"
@@ -271,7 +368,10 @@ def phase_card_scale():
     print(f"  peak device memory {peak / 2**30:.2f} GiB "
           "(torch.cuda.max_memory_allocated)")
     print(f"  dia_spmv launches: {after_setup} in setup, {per_solve} per "
-          f"solve, {launches} in all")
+          f"solve, {launches} in all; dia_spmm launches: {spmm_setup} in "
+          f"setup (the coarse assembly's panel, mu = "
+          f"{state.coarse.E_inv.shape[0]}; its time is the 'coarse' setup "
+          f"phase), {spmm_launches} in all")
 
     # kernel and gmv times: comparisons, not counted as main-path launches
     x = state.dec.d[:, :, None] * torch.ones_like(f)
@@ -287,16 +387,7 @@ def phase_card_scale():
     nbytes = vals.numel() * 8 + 2 * xs.numel() * 8
     b_ms, b_by = bound(nbytes, 2 * int(torch.count_nonzero(vals)),
                        vals.dtype)
-    Sd, nd, n = vals.shape
-    i = torch.arange(n, device="cuda")
-    base = (torch.arange(Sd, device="cuda") * n)[:, None]
-    trip = [[], [], []]
-    for k, off in enumerate(offs):
-        ok = (i + off >= 0) & (i + off < n)
-        trip[0].append((base + i[ok]).reshape(-1))
-        trip[1].append((base + i[ok] + off).reshape(-1))
-        trip[2].append(vals[:, k, ok].reshape(-1))
-    csr = block_csr(*(torch.cat(t) for t in trip), Sd * n)
+    csr = dia_csr(vals, offs)
     lib_ms = library_ms(csr, xs.reshape(-1, 1))
     lib_txt = "not timed" if lib_ms is None else f"{lib_ms * 1e3:.2f} us"
     print(f"  dia_spmv at (S={state.dec.S}, nd={len(offs)}, "
@@ -312,7 +403,7 @@ def phase_card_scale():
     return kernel_record(
         "dia_spmv", "hpddm_tpu_torch/csrc/dia_spmv.cu",
         "hpddm_tpu/ops/pallas_spmv.py:98", launches, None, k_ms, p_ms,
-        b_ms, b_by, lib_ms), g_k
+        b_ms, b_by, lib_ms), g_k, (opt, state, best)
 
 
 def random_ell(rng, S, n, w, band, pad_row=False):
@@ -682,6 +773,272 @@ def phase_unstructured_card(grid_gmv_ms):
                 e_ms, r_ms, b5_ms, b5_by, l5_cold)]
 
 
+def phase_kernels_spmm():
+    """Phase 9: B2 (dia_spmm, x of shape (S, n, mu)) and B3 (dia_spmm_muT,
+    (S, mu, n)) against the plain version on the card; returns the largest
+    |difference|."""
+    import torch
+    from hpddm_tpu_torch.ops import dia_spmv as kmod
+
+    print("phase 9: kernel vs plain, DIA SpMM (B2 and B3 layouts)")
+    rng = np.random.default_rng(5678)
+    worst = 0.0
+    for name, S, n, offs in DIA_CASES:
+        vals_np = rng.normal(size=(S, len(offs), n))
+        for mu in (2, 3, 4, 8, 9, 640):
+            if mu == 640 and name != "card":
+                continue                      # the coarse panel: card only
+            x_np = rng.normal(size=(S, n, mu))
+            for dt in (torch.float64, torch.float32):
+                vals = torch.as_tensor(vals_np, device="cuda").to(dt)
+                x = torch.as_tensor(x_np, device="cuda").to(dt)
+                xT = x.transpose(1, 2).contiguous()
+                y = kmod.dia_spmm(vals, x, offs)
+                yT = kmod.dia_spmm_muT(vals, xT, offs)
+                ref = kmod.dia_spmv_reference(vals, x, offs)
+                torch.cuda.synchronize()
+                err = max(float((y - ref).abs().max()),
+                          float((yT - ref.transpose(1, 2)).abs().max()))
+                scale = float(ref.abs().max())
+                same = torch.equal(y, ref) and \
+                    torch.equal(yT, ref.transpose(1, 2))
+                rtol = KERNEL_RTOL[dtype_name(dt)]
+                print(f"  dia_spmm / dia_spmm_muT vs plain [{name}, S={S}, "
+                      f"n={n}, offsets={offs}, mu={mu}, {dt}]: max|err| = "
+                      f"{err:.3e} (max|y| = {scale:.3e}, tolerance {rtol:g} "
+                      f"* max|y|), bitwise equal: {same}")
+                check(err <= rtol * scale,
+                      f"dia_spmm disagrees with plain: {name} mu={mu} {dt}")
+                worst = max(worst, err)
+                del y, yT, ref, x, xT
+    return worst
+
+
+def multi_case(name, state, rhs, opts, want):
+    """Run one MULTI_ITS sequence on the card: its counts must equal the
+    JAX package's per right-hand side (one iteration of slack for
+    MULTI_SLACK methods, printed when used)."""
+    from hpddm_tpu_torch.options import Options
+    from hpddm_tpu_torch.solvers.krylov import solve
+
+    method = opts.get("krylov_method", "gmres")
+    slack = 1 if method in MULTI_SLACK else 0
+    opt = Options(tol=1e-6, **opts)
+    t = time.perf_counter()
+    for k, want_k in enumerate(want):
+        res = solve(state, rhs, opt=opt)
+        rel = checked_residual_per_rhs(state, rhs, res)
+        its = res.it_per_rhs.tolist()
+        limit = MULTI_RES.get(name, 1e-5)
+        print(f"  {name}, solve {k + 1}: iterations per RHS {its} (JAX CPU "
+              f"f64: {want_k}), recomputed rel. residual per RHS "
+              f"{', '.join(f'{r:.3e}' for r in rel)} (limit {limit:.3e})")
+        diff = max(abs(a - b) for a, b in zip(its, want_k))
+        check(diff <= slack, f"{name} solve {k + 1}: {its} != {want_k}")
+        if diff:
+            print(f"    differs by {diff} from the JAX package's count "
+                  "(allowed for this method)")
+        check(max(rel) <= limit * (1.1 if name in MULTI_RES else 1.0),
+              f"{name} solve {k + 1}: residual {max(rel):.3e}")
+    print(f"    ({time.perf_counter() - t:.2f} s)")
+
+
+def checked_residual_per_rhs(state, f, res):
+    """Recomputed relative residual of every right-hand side of a solve,
+    after checking that the solution is finite and of f's shape."""
+    import torch
+    from hpddm_tpu_torch.precond.schwarz import compute_residual
+
+    check(tuple(res.x.shape) == tuple(f.shape),
+          f"x shape {tuple(res.x.shape)}")
+    check(bool(torch.isfinite(res.x).all()), "non-finite solution")
+    nb, nr = compute_residual(state, res.x, f)
+    return (nr / nb).tolist()
+
+
+def phase_multi_parity():
+    """Phase 10: every MULTI_ITS sequence at the oracle on the card in f64,
+    then f32 gmres and bgmres at mu=4."""
+    import torch
+    from hpddm_tpu_torch.models import diffusion2d
+    from hpddm_tpu_torch.options import Options
+    from hpddm_tpu_torch.solvers.krylov import solve
+
+    print("phase 10: multi-RHS and block Krylov parity (100x100, S=4, nu=10, "
+          "deflated, f64, tol 1e-6)")
+    sch = []
+    _, state4, f4 = build_problem(4, 100, 10, np.float64, "cuda", mu=4,
+                                  schwarz=sch)
+    gen = diffusion2d.generate(4, 100, 100, overlap=1)
+    f1 = torch.zeros_like(f4[:, :, :1])
+    for s, fs in enumerate(gen.f):
+        f1[s, : gen.n_loc[s]] = torch.as_tensor(fs, device="cuda")
+    rhs = {"f4": f4, "f1": f1}
+    for name, (which, opts, setup, want) in MULTI_ITS.items():
+        state = state4
+        if setup:
+            for k, v in setup.items():
+                sch[0].opt[k] = v
+            state = sch[0].build()
+            for k in setup:
+                sch[0].opt.remove(k)
+        multi_case(name, state, rhs[which], opts, want)
+    # f32: pseudo-block gmres is held to the oracle's gates (<= 45
+    # iterations, residual <= 1e-2); bgmres's regularized normal equations
+    # (10 eps trace(G)) cannot resolve tol 1e-6 in f32, and the JAX package
+    # itself runs to max_it there (100 iterations, residual 6.5e-3 on the
+    # CPU), so bgmres is held to the residual gate only
+    _, state, f = build_problem(4, 100, 10, np.float32, "cuda", mu=4)
+    for method in ("gmres", "bgmres"):
+        res = solve(state, f, opt=Options(tol=1e-6, krylov_method=method))
+        rel = checked_residual(state, f, res)
+        print(f"  f32 {method} mu=4 tol 1e-06: {res.it_per_rhs.tolist()} "
+              f"iterations per RHS, recomputed rel. residual {rel:.3e}")
+        check(rel <= 1e-2 and (method == "bgmres" or res.iterations <= 45),
+              f"f32 {method} gates")
+
+
+def count_plain_calls():
+    """Wrap the DIA plain version where the port reaches it, counting the
+    calls on CUDA tensors: a run through the kernels makes none. Returns
+    the counter (a one-element list)."""
+    from hpddm_tpu_torch.ops import dia_spmv as kmod
+    from hpddm_tpu_torch.ops import spmv
+
+    calls = [0]
+    plain = kmod.dia_spmv_reference
+
+    def counted(vals, x, offsets):
+        if x.is_cuda:
+            calls[0] += 1
+        return plain(vals, x, offsets)
+
+    kmod.dia_spmv_reference = spmv.dia_spmv_reference = counted
+    return calls
+
+
+def phase_multi_card(card):
+    """Phase 11: slice 4's main path at card scale on phase 5's state
+    (512x512, S=64, nu=10, f64, tol 1e-6): pseudo-block gmres and bgmres
+    over 4 consistent random right-hand sides, a recycled gcrodr sequence
+    at mu=1, then B2's times at mu=4 and at the coarse panel and one gmv at
+    mu=4. Returns the B2/B3 kernel record."""
+    import torch
+    from hpddm_tpu_torch.ops import dia_spmv as kmod
+    from hpddm_tpu_torch.options import Options
+    from hpddm_tpu_torch.parallel.ops import scaled_exchange
+    from hpddm_tpu_torch.precond.schwarz import gmv
+    from hpddm_tpu_torch.solvers.block import _block_ls, _chol_qr
+    from hpddm_tpu_torch.solvers.krylov import make_operator, solve
+    from hpddm_tpu_torch.timing import cold_events_ms, events_ms, timed
+
+    _, state, single_best = card             # phase 5's state and solve time
+    dec = state.dec
+    S, n = dec.S, dec.n_max
+    print(f"phase 11: multi-RHS card scale (512x512, S={S}, nu=10, f64, "
+          "tol 1e-6, mu=4)")
+    rng = np.random.default_rng(11)
+    f = rng.uniform(0.0, 1.0, size=(S, n, 4))
+    f[np.arange(n)[None, :] >= dec.n_loc.cpu().numpy()[:, None]] = 0.0
+    f = scaled_exchange(dec, torch.as_tensor(f, device="cuda"))
+    f1 = f[:, :, :1].contiguous()
+    plain = count_plain_calls()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kmod.launches = kmod.spmm_launches = 0   # the main path's counts from here
+    plain[0] = 0
+    out = {}
+    for method in ("gmres", "bgmres"):
+        opt = Options(tol=1e-6, krylov_method=method)
+        best, times, res = timed(lambda: solve(state, f, opt=opt), reps=3,
+                                 warmup=1)
+        out[method] = (best, times, res)
+    seq = []
+    opt = Options(tol=1e-6, krylov_method="gcrodr", recycle=20)
+    for _ in range(2):
+        t = time.perf_counter()
+        res = solve(state, f1, opt=opt)
+        torch.cuda.synchronize()
+        seq.append((res, time.perf_counter() - t))
+    launches = (kmod.launches, kmod.spmm_launches)   # just after the path
+    plain_calls = plain[0]
+    peak = torch.cuda.max_memory_allocated()
+    for method, (best, times, res) in out.items():
+        rel = checked_residual_per_rhs(state, f, res)
+        print(f"  {method}: iterations per RHS {res.it_per_rhs.tolist()}, "
+              f"recomputed rel. residual per RHS "
+              f"{', '.join(f'{r:.3e}' for r in rel)}, best of 3 after a "
+              f"warm-up {best:.4f} s ({', '.join(f'{t:.4f}' for t in times)})"
+              f", {best / res.iterations * 1e3:.2f} ms per iteration, "
+              f"{best / 4:.4f} s per RHS against phase 5's single-RHS solve "
+              f"{single_best:.4f} s (4 x = {4 * single_best:.4f} s)")
+        check(bool(res.converged.all()) and max(rel) <= 1e-5,
+              f"{method} at card scale: residual {max(rel):.3e}")
+    for k, (res, sec) in enumerate(seq):
+        rel = checked_residual_per_rhs(state, f1, res)
+        print(f"  gcrodr recycle 20, mu=1, solve {k + 1}: {res.iterations} "
+              f"iterations, recomputed rel. residual {rel[0]:.3e}, "
+              f"{sec:.4f} s")
+        check(rel[0] <= 1e-5, f"gcrodr solve {k + 1}: residual {rel[0]:.3e}")
+    print(f"  peak device memory {peak / 2**30:.2f} GiB; launches on this "
+          f"path: dia_spmm {launches[1]}, dia_spmv {launches[0]}; plain "
+          f"DIA calls on the card {plain_calls}")
+    check(launches[1] > 0, "no dia_spmm launch on the multi-RHS path")
+    check(plain_calls == 0, f"{plain_calls} plain DIA calls on the card")
+
+    # B2 timings and checks: not counted as main-path launches
+    vals, offs = state.A.values, state.A.offsets
+    csr = dia_csr(vals, offs)
+    nnz = int(torch.count_nonzero(vals))
+    rec = None
+    worst = 0.0
+    for mu in (4, state.coarse.E_inv.shape[0]):
+        x = torch.as_tensor(rng.normal(size=(S, n, mu)), device="cuda")
+        k_ms = cold_events_ms(lambda: kmod.dia_spmm(vals, x, offs))
+        p_ms = cold_events_ms(lambda: kmod.dia_spmv_reference(vals, x, offs),
+                              reps=10 if mu > 4 else 30)
+        xT = x.transpose(1, 2).contiguous()
+        t_ms = cold_events_ms(lambda: kmod.dia_spmm_muT(vals, xT, offs))
+        k_warm = events_ms(lambda: kmod.dia_spmm(vals, x, offs), 20)
+        xs = x.reshape(-1, mu)
+        lib_ms = library_ms(csr, xs)
+        nbytes = vals.numel() * 8 + 2 * x.numel() * 8
+        b_ms, b_by = bound(nbytes, 2 * nnz * mu, vals.dtype)
+        y = kmod.dia_spmm(vals, x, offs)
+        err = float((y - kmod.dia_spmv_reference(vals, x, offs)).abs().max())
+        worst = max(worst, err)
+        lib_txt = "not timed" if lib_ms is None else f"{lib_ms * 1e3:.2f} us"
+        print(f"  dia_spmm at (S={S}, nd={len(offs)}, n={n}) f64, mu={mu}: "
+              f"kernel {k_ms * 1e3:.2f} us ((S, mu, n) layout "
+              f"{t_ms * 1e3:.2f} us), plain {p_ms * 1e3:.2f} us, "
+              f"torch.sparse.mm {lib_txt}, all with L2 flushed; kernel "
+              f"{k_warm * 1e3:.2f} us back to back; bound {b_ms * 1e3:.2f} us "
+              f"({b_by}; {nbytes / 1e6:.2f} MB) = {100 * b_ms / k_ms:.1f}% of "
+              f"the kernel's cold time, {nbytes / (k_ms * 1e-3) / 1e9:.0f} "
+              f"GB/s; max|kernel - plain| {err:.3e}")
+        if mu == 4:
+            rec = kernel_record(
+                "dia_spmm", "hpddm_tpu_torch/csrc/dia_spmm.cu",
+                "hpddm_tpu/ops/pallas_spmv.py:167", launches[1], worst, k_ms,
+                p_ms, b_ms, b_by, lib_ms)
+        del x, xT, xs, y
+    x4 = (dec.d[:, :, None] * torch.ones_like(f)).contiguous()
+    g4 = events_ms(lambda: gmv(state, x4), 50)
+    print(f"  gmv at mu=4: {g4 * 1e3:.2f} us (best of 5 x 50)")
+    # bgmres's per-iteration small algebra: the block least squares (eigh
+    # of the (restart mu)^2 Gram) and the CholQR of the new block
+    m = int(Options().val("gmres_restart"))
+    H = torch.as_tensor(rng.normal(size=(m + 1, m, 4, 4)), device="cuda")
+    R0 = torch.as_tensor(rng.normal(size=(4, 4)), device="cuda")
+    ls_ms = events_ms(lambda: _block_ls(H, R0, m), 5)
+    qr_ms = events_ms(lambda: _chol_qr(make_operator(state), x4), 5)
+    print(f"  bgmres's block least squares ({m * 4}x{m * 4} eigh) "
+          f"{ls_ms * 1e3:.1f} us and CholQR of one block {qr_ms * 1e3:.1f} us "
+          "per call (best of 5 x 5)")
+    rec["max_abs_err"] = worst
+    return rec
+
+
 def main():
     import torch
 
@@ -714,7 +1071,7 @@ def main():
     print("phase 3: kernel vs plain")
     max_err = phase_kernels()
     phase_oracle()
-    dia, grid_gmv_ms = phase_card_scale()
+    dia, grid_gmv_ms, card = phase_card_scale()
     dia["max_abs_err"] = max_err
     t = time.perf_counter()
     b4_err, b5_err = phase_kernels_unstructured()
@@ -725,8 +1082,16 @@ def main():
     print(f"  phase 8: {time.perf_counter() - t:.1f} s")
     ell["max_abs_err"] = max(b4_err, ell["max_abs_err"])
     pex["max_abs_err"] = max(b5_err, pex["max_abs_err"])
+    t = time.perf_counter()
+    spmm_err = phase_kernels_spmm()
+    phase_multi_parity()
+    print(f"  phases 9-10: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    spmm = phase_multi_card(card)
+    spmm["max_abs_err"] = max(spmm_err, spmm["max_abs_err"])
+    print(f"  phase 11: {time.perf_counter() - t:.1f} s")
 
-    kernels = {"kernels": [dia, ell, pex]}
+    kernels = {"kernels": [dia, spmm, ell, pex]}
     print(f"wall {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps(kernels))

@@ -18,9 +18,12 @@ _TO_TORCH = {
 
 
 def as_torch_dtype(dtype) -> torch.dtype:
-    """A torch dtype from a torch dtype, a numpy dtype or a numpy type."""
+    """A torch dtype from a torch dtype, a numpy dtype or type, or a name
+    ("float32", "bfloat16", ...: the values of -hpddm_coarse_dtype)."""
     if isinstance(dtype, torch.dtype):
         return dtype
+    if dtype == "bfloat16":
+        return torch.bfloat16
     return _TO_TORCH[np.dtype(dtype)]
 
 

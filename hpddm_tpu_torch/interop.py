@@ -58,6 +58,12 @@ def state_from_numpy(arrays: Dict[str, Any], device=DEFAULT,
     def i(key):
         return t(key, torch.int64)
 
+    def kept(key):
+        # local factors and coarse arrays held in a lower precision than
+        # the operator (the JAX package's mixed precision) keep it
+        low = as_torch_dtype(np.asarray(arrays[key]).dtype)
+        return t(key, low if low.itemsize < dtype.itemsize else dtype)
+
     def b(key):
         return t(key, torch.bool)
 
@@ -81,11 +87,11 @@ def state_from_numpy(arrays: Dict[str, Any], device=DEFAULT,
     coarse = None
     if arrays.get("Z") is not None:
         coarse = CoarseState(
-            Z=f("Z"), E_inv=f("E_inv"),
+            Z=kept("Z"), E_inv=kept("E_inv"),
             nu_loc=t("nu_loc", torch.int32),
             nu_max=int(arrays["nu_max"]), correction=str(arrays["correction"]))
     bc = arrays.get("bc")
     return SchwarzState(
-        dec=dec, A=A, solver=LocalSolver(kind="inv", factor=f("factor")),
+        dec=dec, A=A, solver=LocalSolver(kind="inv", factor=kept("factor")),
         coarse=coarse, variant=str(arrays["variant"]),
         bc=None if bc is None else f("bc"))

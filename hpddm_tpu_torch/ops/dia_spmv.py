@@ -1,15 +1,19 @@
-"""Batched DIA SpMV: the CUDA kernel and its plain PyTorch version.
+"""Batched DIA SpMV and SpMM: CUDA kernels and their plain PyTorch versions.
 
-Counterpart of ``hpddm_tpu/ops/pallas_spmv.py`` (``_dia_spmv_blocked``,
-:98). ``dia_spmv`` computes
+Counterpart of ``hpddm_tpu/ops/pallas_spmv.py``. ``dia_spmv``
+(``_dia_spmv_blocked``, :98) computes
 
     y[s, i] = sum_k vals[s, k, i] * x[s, i + offsets[k]]
 
 with x read as 0 outside [0, n), for vals (S, nd, n) and x (S, n) in f32 or
-f64. On CUDA tensors it launches the hand-written kernel
-``csrc/dia_spmv.cu``; on CPU tensors it runs ``dia_spmv_reference``, the
-same function in plain PyTorch. A CUDA tensor that the kernel does not take
-raises; nothing falls back.
+f64. ``dia_spmm`` (``_dia_spmv_blocked_mu``, :167) computes the same
+product for a panel x (S, n, mu), and ``dia_spmm_muT``
+(``_dia_spmv_blocked_muT``, :253) for a panel with the RHS axis leading,
+xT (S, mu, n); both launch one kernel, ``csrc/dia_spmm.cu``, which reads x
+through its strides. On CUDA tensors each wrapper launches its hand-written
+kernel; on CPU tensors it runs the plain PyTorch version of the same
+function. A CUDA tensor that the kernel does not take raises; nothing falls
+back.
 """
 
 from __future__ import annotations
@@ -20,11 +24,13 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
-# launches of the CUDA kernel since the last reset (plain-version calls on
-# CPU tensors are not counted)
+# launches of the CUDA kernels since the last reset (plain-version calls on
+# CPU tensors are not counted): ``launches`` of dia_spmv.cu (B1),
+# ``spmm_launches`` of dia_spmm.cu (B2/B3, by either layout's wrapper)
 launches = 0
+spmm_launches = 0
 
-MAX_DIAGS = 32                # DIA_MAX_DIAGS of csrc/dia_spmv.cu
+MAX_DIAGS = 32                # DIA_MAX_DIAGS of csrc/dia_spmv.cu, dia_spmm.cu
 _MAX_S = 65535                # grid.y limit of the launch
 
 
@@ -43,43 +49,107 @@ def dia_spmv_reference(vals: torch.Tensor, x: torch.Tensor,
     return out
 
 
+def dia_spmm_muT_reference(vals: torch.Tensor, xT: torch.Tensor,
+                           offsets: Sequence[int]) -> torch.Tensor:
+    """Plain version of the RHS-leading layout: xT (S, mu, n) -> (S, mu, n),
+    the same sums as ``dia_spmv_reference`` on the transposed panel."""
+    return dia_spmv_reference(vals, xT.transpose(1, 2), offsets) \
+        .transpose(1, 2).contiguous()
+
+
+def _checked(name: str, vals: torch.Tensor, x: torch.Tensor,
+             offsets: Sequence[int], shape: tuple) -> None:
+    """Raise unless the kernel takes vals (S, nd, n) and x of ``shape``:
+    one CUDA device (the current one), float32 or float64 for both,
+    contiguous, and within the launch's limits."""
+    if not (vals.is_cuda and x.is_cuda and vals.device == x.device):
+        raise ValueError(f"{name}: vals on {vals.device}, x on {x.device}; "
+                         "both must be on the same CUDA device")
+    if vals.dtype != x.dtype or x.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{name}: dtypes {vals.dtype}/{x.dtype}; the kernel "
+                        "takes float32 or float64, the same for both")
+    if vals.dim() != 3 or x.dim() != len(shape):
+        raise ValueError(f"{name}: shapes {tuple(vals.shape)} and "
+                         f"{tuple(x.shape)}; expected (S, nd, n) and "
+                         f"{len(shape)} axes")
+    S, nd, n = vals.shape
+    if tuple(x.shape) != shape or len(offsets) != nd:
+        raise ValueError(f"{name}: vals {tuple(vals.shape)}, x "
+                         f"{tuple(x.shape)}, {len(offsets)} offsets disagree")
+    if not (vals.is_contiguous() and x.is_contiguous()):
+        raise ValueError(f"{name}: vals and x must be contiguous")
+    per_sub = max(x.numel() // max(S, 1), 1)
+    if nd > MAX_DIAGS or S > _MAX_S or n * max(nd, 1) >= 2 ** 31 \
+            or per_sub >= 2 ** 31:
+        raise ValueError(f"{name}: S={S}, nd={nd}, n={n}, x {tuple(x.shape)} "
+                         f"exceed the kernel's limits (nd <= {MAX_DIAGS}, "
+                         f"S <= {_MAX_S})")
+    if x.device.index != torch.cuda.current_device():
+        raise ValueError(f"{name}: x on {x.device}, current device is "
+                         f"cuda:{torch.cuda.current_device()}")
+
+
+def _offsets(offsets: Sequence[int]):
+    return (ctypes.c_int * max(len(offsets), 1))(*[int(o) for o in offsets])
+
+
 def dia_spmv(vals: torch.Tensor, x: torch.Tensor,
              offsets: Sequence[int]) -> torch.Tensor:
     """y (S, n) = DIA product of vals (S, nd, n) with x (S, n)."""
     global launches
     if vals.device.type == "cpu" and x.device.type == "cpu":
         return dia_spmv_reference(vals, x, offsets)
-    if not (vals.is_cuda and x.is_cuda and vals.device == x.device):
-        raise ValueError(f"dia_spmv: vals on {vals.device}, x on {x.device}; "
-                         "both must be on the same CUDA device")
-    if vals.dtype != x.dtype or x.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"dia_spmv: dtypes {vals.dtype}/{x.dtype}; the kernel "
-                        "takes float32 or float64, the same for both")
-    if vals.dim() != 3 or x.dim() != 2:
-        raise ValueError(f"dia_spmv: shapes {tuple(vals.shape)} and "
-                         f"{tuple(x.shape)}; expected (S, nd, n) and (S, n)")
-    S, nd, n = vals.shape
-    if tuple(x.shape) != (S, n) or len(offsets) != nd:
-        raise ValueError(f"dia_spmv: vals {tuple(vals.shape)}, x "
-                         f"{tuple(x.shape)}, {len(offsets)} offsets disagree")
-    if not (vals.is_contiguous() and x.is_contiguous()):
-        raise ValueError("dia_spmv: vals and x must be contiguous")
-    if nd > MAX_DIAGS or S > _MAX_S or n * max(nd, 1) >= 2 ** 31:
-        raise ValueError(f"dia_spmv: S={S}, nd={nd}, n={n} exceed the "
-                         f"kernel's limits (nd <= {MAX_DIAGS}, S <= {_MAX_S})")
-    if x.device.index != torch.cuda.current_device():
-        raise ValueError(f"dia_spmv: x on {x.device}, current device is "
-                         f"cuda:{torch.cuda.current_device()}")
+    S, nd, n = vals.shape if vals.dim() == 3 else (0, 0, 0)
+    _checked("dia_spmv", vals, x, offsets, (S, n))
     from hpddm_tpu_torch import _build
 
     lib = _build.load()
     fn = lib.dia_spmv_f64 if x.dtype == torch.float64 else lib.dia_spmv_f32
     y = torch.empty_like(x)
-    offs = (ctypes.c_int * max(nd, 1))(*[int(o) for o in offsets])
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(vals.data_ptr(), x.data_ptr(), y.data_ptr(), S, nd, n, offs,
-             stream)
+    err = fn(vals.data_ptr(), x.data_ptr(), y.data_ptr(), S, nd, n,
+             _offsets(offsets), stream)
     if err != 0:
         raise RuntimeError(f"dia_spmv: kernel launch failed, cudaError {err}")
     launches += 1
     return y
+
+
+def _dia_spmm(name: str, vals: torch.Tensor, x: torch.Tensor,
+              offsets: Sequence[int], mu_leading: bool) -> torch.Tensor:
+    """Launch dia_spmm.cu on x (S, n, mu), or (S, mu, n) when mu_leading."""
+    global spmm_launches
+    S, nd, n = vals.shape if vals.dim() == 3 else (0, 0, 0)
+    mu = x.shape[1 if mu_leading else -1] if x.dim() == 3 else 0
+    _checked(name, vals, x, offsets, (S, mu, n) if mu_leading else (S, n, mu))
+    from hpddm_tpu_torch import _build
+
+    lib = _build.load()
+    fn = lib.dia_spmm_f64 if x.dtype == torch.float64 else lib.dia_spmm_f32
+    y = torch.empty_like(x)
+    sn, sm = (1, n) if mu_leading else (mu, 1)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = fn(vals.data_ptr(), x.data_ptr(), y.data_ptr(), S, nd, n, mu, sn,
+             sm, _offsets(offsets), stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed, cudaError {err}")
+    spmm_launches += 1
+    return y
+
+
+def dia_spmm(vals: torch.Tensor, x: torch.Tensor,
+             offsets: Sequence[int]) -> torch.Tensor:
+    """y (S, n, mu) = DIA product of vals (S, nd, n) with the panel x
+    (S, n, mu): B2's layout, the port's (S, n_max, mu) batch."""
+    if vals.device.type == "cpu" and x.device.type == "cpu":
+        return dia_spmv_reference(vals, x, offsets)
+    return _dia_spmm("dia_spmm", vals, x, offsets, mu_leading=False)
+
+
+def dia_spmm_muT(vals: torch.Tensor, xT: torch.Tensor,
+                 offsets: Sequence[int]) -> torch.Tensor:
+    """yT (S, mu, n) = DIA product of vals (S, nd, n) with the panel xT
+    (S, mu, n): B3's layout, the right-hand-side axis leading."""
+    if vals.device.type == "cpu" and xT.device.type == "cpu":
+        return dia_spmm_muT_reference(vals, xT, offsets)
+    return _dia_spmm("dia_spmm_muT", vals, xT, offsets, mu_leading=True)

@@ -23,10 +23,21 @@ class LocalSolver:
     factor: torch.Tensor          # inv: A^-1, (S, n, n)
 
     def solve(self, b: torch.Tensor) -> torch.Tensor:
-        """Solve A x = b for a batch b: (S, n, mu)."""
+        """Solve A x = b for a batch b: (S, n, mu). A factor kept in
+        another dtype than b (``Schwarz.build(dtype=...)``) is promoted
+        with b, as the JAX package's einsum promotes it."""
         if self.kind == "inv":
-            return torch.bmm(self.factor, b)
+            return torch.bmm(promoted(self.factor, b),
+                             promoted(b, self.factor))
         raise ValueError(f"unknown local solver kind {self.kind!r}")
+
+
+def promoted(a: torch.Tensor, other: torch.Tensor) -> torch.Tensor:
+    """a in the dtype that a product of a and other is computed in (the
+    type promotion of jnp's einsum and matmul, which torch.bmm does not
+    do); a itself when it already has it."""
+    dt = torch.promote_types(a.dtype, other.dtype)
+    return a if a.dtype == dt else a.to(dt)
 
 
 def invert(A: torch.Tensor) -> torch.Tensor:

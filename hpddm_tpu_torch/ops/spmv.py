@@ -1,10 +1,12 @@
 """Batched local sparse matrix products (counterpart of ``hpddm_tpu/ops/spmv.py``).
 
-* DIA: shifted multiply-adds over the diagonals. A single right-hand side
-  on a CUDA tensor goes through the hand-written kernel (ops/dia_spmv.py),
-  as the JAX package sends it to its Pallas kernel
-  (``hpddm_tpu/ops/spmv.py:210-219``); more right-hand sides take the plain
-  version until the multi-RHS kernel is ported (ROADMAP queue B, B2).
+* DIA: shifted multiply-adds over the diagonals. On a CUDA tensor a single
+  right-hand side goes through the SpMV kernel (ops/dia_spmv.py
+  ``dia_spmv``), as the JAX package sends it to its Pallas kernel
+  (``hpddm_tpu/ops/spmv.py:210-219``), and a panel of right-hand sides
+  through the SpMM kernel (``dia_spmm``, the port of
+  ``_dia_spmv_blocked_mu``). The JAX package keeps mu > 1 on XLA after a
+  TPU measurement (``_MAX_PALLAS_MU``); that says nothing of this card.
 * ELL: a gather and a sum over each row's slots of the slot-major batch.
   Every ELL product on a CUDA tensor, any mu, goes through
   the hand-written kernel (ops/ell_spmv.py), as the JAX package sends its
@@ -20,7 +22,8 @@ from __future__ import annotations
 import torch
 
 from hpddm_tpu_torch.core.formats import BatchedDense, BatchedDIA, BatchedELL
-from hpddm_tpu_torch.ops.dia_spmv import dia_spmv, dia_spmv_reference
+from hpddm_tpu_torch.ops.dia_spmv import (dia_spmm, dia_spmv,
+                                          dia_spmv_reference)
 from hpddm_tpu_torch.ops.ell_spmv import ell_spmv, ell_spmv_reference
 
 
@@ -44,7 +47,7 @@ def spmm(A, x: torch.Tensor) -> torch.Tensor:
         if x.shape[-1] == 1:
             y = dia_spmv(A.values, x[:, :, 0].contiguous(), A.offsets)
             return y[:, :, None]
-        return spmm_dia(A, x)
+        return dia_spmm(A.values, x.contiguous(), A.offsets)
     if isinstance(A, BatchedELL):
         return ell_spmv(A.values, A.cols, x.contiguous())
     if isinstance(A, BatchedDense):

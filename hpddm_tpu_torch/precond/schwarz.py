@@ -40,7 +40,7 @@ from hpddm_tpu_torch.core.formats import (BatchedELL, batched_dense_from,
                                           pack_local_matrices)
 from hpddm_tpu_torch.device import DEFAULT, as_device
 from hpddm_tpu_torch.dtypes import HPDDM_EPS, HPDDM_PEN, as_torch_dtype
-from hpddm_tpu_torch.ops.local_solve import LocalSolver, invert
+from hpddm_tpu_torch.ops.local_solve import LocalSolver, invert, promoted
 from hpddm_tpu_torch.ops.spmv import spmm
 from hpddm_tpu_torch.options import Options
 from hpddm_tpu_torch.parallel.decomposition import Decomposition
@@ -115,21 +115,24 @@ def _coarse_solve(co: CoarseState, c: torch.Tensor) -> torch.Tensor:
     with the prefactorized inverse."""
     if co.mode != "direct":
         raise _not_ported(f"coarse mode {co.mode!r}",
-                          "ROADMAP queue A, slices 3 and 4")
+                          "ROADMAP queue A, slices 3 and 5")
     return co.E_inv @ c.to(co.E_inv.dtype)
 
 
 def deflation(state: SchwarzState, x: torch.Tensor) -> torch.Tensor:
-    """Coarse correction out = Z E^-1 Z^T D x (HPDDM_schwarz.hpp:1602-1622)."""
+    """Coarse correction out = Z E^-1 Z^T D x (HPDDM_schwarz.hpp:1602-1622).
+    Z kept in another dtype than x (``Schwarz.build(dtype=...)``) is
+    promoted with x, as the JAX package's einsums promote it."""
     co = state.coarse
     dec = state.dec
     mu = x.shape[-1]
     dx = dec.d[:, :, None] * x                               # D x
+    Z = promoted(co.Z, dx)
     # coarse RHS c[(s, a)] = Z_s[:, a]^T (D x)_s -> (S, nu, mu)
-    c = torch.bmm(co.Z.conj().transpose(1, 2), dx).reshape(-1, mu)
+    c = torch.bmm(Z.conj().transpose(1, 2), promoted(dx, Z)).reshape(-1, mu)
     y = _coarse_solve(co, c).to(x.dtype)                     # (N_c, mu)
     y = y.reshape(-1, co.nu_max, mu)                         # (S, nu, mu)
-    return scaled_exchange(dec, torch.bmm(co.Z, y))          # Z y
+    return scaled_exchange(dec, torch.bmm(Z, promoted(y, Z)))   # Z y
 
 
 def start(state: SchwarzState, b: torch.Tensor,
@@ -360,8 +363,11 @@ class Schwarz:
         """Factorize the local solvers and the coarse operator and return
         the state (``callNumfact``, HPDDM_schwarz.hpp:337-368).
 
-        dtype: the factors' dtype; only the operator's own is ported (a
-        factor in another dtype needs flexible GMRES)."""
+        dtype: the dtype of the local factors and of the deflation
+        vectors (default: the operator's). The JAX package's mixed
+        precision: the operator and the Krylov vectors stay in their dtype
+        and each product with a factor is promoted
+        (``hpddm_tpu/precond/schwarz.py:1230-1237``)."""
         opt = self.opt
         pfx = self.prefix
         variant = opt.val("schwarz_method", prefix=pfx)
@@ -369,10 +375,7 @@ class Schwarz:
                     "dump_eigenvectors"):
             if opt.val(key):
                 raise _not_ported(f"-hpddm_{key}", "ROADMAP queue A, slice 5")
-        dt = self.A.values.dtype
-        if dtype is not None and as_torch_dtype(dtype) != dt:
-            raise _not_ported(f"factors in {as_torch_dtype(dtype)} for a "
-                              f"{dt} operator", "ROADMAP queue A, slice 4")
+        dt = self.A.values.dtype if dtype is None else as_torch_dtype(dtype)
         t0 = time.perf_counter()
         kind = opt.val("local_solver", prefix=pfx)
         if kind != "inv":
@@ -414,12 +417,10 @@ class Schwarz:
             raise _not_ported("coarse_assembly=bsr", "ROADMAP queue A, slice 3")
         if "krylov_method" in lvl or opt.set("level_2_tol"):
             raise _not_ported("iterative (level-2) coarse solves",
-                              "ROADMAP queue A, slice 4")
+                              "ROADMAP queue A, slices 3 and 5")
         if lvl.val("dump_matrix"):
             raise _not_ported("-hpddm_level_2_dump_matrix",
                               "ROADMAP queue A, slice 5")
-        if opt.val("coarse_dtype") not in (None, "same"):
-            raise _not_ported("-hpddm_coarse_dtype", "ROADMAP queue A, slice 3")
         dec = self.dec
         S = dec.S
         if self._deflation_vectors is None:
@@ -439,6 +440,13 @@ class Schwarz:
             Z[s, : v.shape[0], : v.shape[1]] = v
         Z = torch.as_tensor(Z, device=self.device).to(dtype)
         E = self._assemble_E(Z, nu_loc, nu_max)
+        coarse_dtype = opt.val("coarse_dtype")
+        if coarse_dtype not in (None, "same"):
+            # -hpddm_coarse_dtype: the coarse operator in reduced precision
+            # (``hpddm_tpu/precond/schwarz.py:2021-2023``); it is inverted
+            # in f64 and rounded once, and the Krylov dispatch switches
+            # GMRES to its flexible variant
+            E = E.to(as_torch_dtype(coarse_dtype))
         return CoarseState(Z=Z, E_inv=invert(E),
                            nu_loc=torch.as_tensor(nu_loc, device=self.device),
                            nu_max=nu_max, correction=correction)
@@ -459,7 +467,9 @@ class Schwarz:
             X0[s, :, s * nu_max:(s + 1) * nu_max] = DZ[s]
         X = exchange(dec, X0)                                # consistent rep
         del X0
-        Y = spmm(self.A, X)                                  # A_s X_s
+        # A_s X_s; Z in another dtype than the operator is promoted with
+        # it, as the JAX package's product promotes it
+        Y = spmm(self.A, promoted(X, self.A.values))
         Xd = X.conj() * dec.d[:, :, None]
         del X
         E = Xd.reshape(S * n, N_c).T @ Y.reshape(S * n, N_c)

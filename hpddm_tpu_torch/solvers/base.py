@@ -41,13 +41,22 @@ class LinearOperator:
             b = self.norm_filter(b)
         return self.norm_sq(b)
 
-    def _weighted(self, y: torch.Tensor) -> torch.Tensor:
-        return y if self.weight is None else self.weight[:, :, None] * y
+    def weighted(self, y: torch.Tensor) -> torch.Tensor:
+        """y (S, n, ...) times the partition of unity, broadcast over y's
+        trailing axes; y itself without a weight."""
+        if self.weight is None:
+            return y
+        return self.weight.reshape(self.weight.shape + (1,) * (y.dim() - 2)) \
+            * y
+
+    def dot(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """Weighted per-RHS dot <x, y> -> (mu,)."""
+        return torch.sum(self.weighted(x.conj()) * y, dim=(0, 1))
 
     def norm_sq(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.sum(self._weighted(torch.abs(x) ** 2), dim=(0, 1))
+        return torch.sum(self.weighted(torch.abs(x) ** 2), dim=(0, 1))
 
     def gram(self, V: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         """All basis dots at once: V (k, S, n, mu), y (S, n, mu) -> (k, mu).
         The CGS single-reduction Gram step (HPDDM_iterative.hpp:489-522)."""
-        return torch.einsum("ksnm,snm->km", V.conj(), self._weighted(y))
+        return torch.einsum("ksnm,snm->km", V.conj(), self.weighted(y))

@@ -1,9 +1,11 @@
-"""Restarted right-preconditioned GMRES (counterpart of ``hpddm_tpu/solvers/gmres.py``).
+"""Restarted GMRES (counterpart of ``hpddm_tpu/solvers/gmres.py``).
 
 Pseudo-block over multiple right-hand sides, as the reference
 (include/HPDDM_GMRES.hpp:30-158):
 
-* CGS orthogonalization (one Gram product) or iterated CGS (``cgs2``),
+* left, right or flexible preconditioning (``-hpddm_variant``),
+* CGS orthogonalization (one Gram product), iterated CGS (``cgs2``) or
+  MGS (one dot per basis vector),
 * Givens-updated residual norms through the accumulated rotation product
   (HPDDM_iterative.hpp:669-710), the JAX package's arithmetic,
 * per-RHS convergence tracking: the reported iteration count is the first
@@ -11,8 +13,7 @@ Pseudo-block over multiple right-hand sides, as the reference
 
 The JAX package's ``lax.while_loop`` is a Python loop here; the loop
 reads one boolean (all right-hand sides converged) from the device per
-iteration. Left and flexible preconditioning and MGS belong to a later
-slice.
+iteration.
 """
 
 from __future__ import annotations
@@ -34,6 +35,25 @@ class KrylovResult(NamedTuple):
     # (max_it + 1, mu) per-iteration relative residual estimates, -1 where
     # not reached
     history: Optional[torch.Tensor] = None
+
+
+def first_crossing(first_it: torch.Tensor, crossed: torch.Tensor,
+                   it: int) -> torch.Tensor:
+    """Record iteration ``it`` for the right-hand sides crossing now."""
+    return torch.where((first_it == 0) & crossed,
+                       torch.full_like(first_it, it), first_it)
+
+
+def krylov_result(x: torch.Tensor, first_it: torch.Tensor, it: int,
+                  max_it: int, rel_res: torch.Tensor,
+                  history: torch.Tensor) -> KrylovResult:
+    """The result of a loop that stopped before global iteration ``it``:
+    a right-hand side that never crossed reports the iterations run."""
+    it_per_rhs = torch.where(first_it > 0, first_it,
+                             torch.full_like(first_it, min(it - 1, max_it)))
+    return KrylovResult(x=x, iterations=int(torch.max(it_per_rhs)),
+                        it_per_rhs=it_per_rhs, rel_res=rel_res,
+                        converged=first_it > 0, history=history)
 
 
 def _givens(a, b):
@@ -72,17 +92,14 @@ def gmres(op: LinearOperator, b: torch.Tensor,
           x0: Optional[torch.Tensor] = None, tol: float = 1.0e-6,
           restart: int = 40, max_it: int = 100, variant: str = "right",
           ortho: str = "cgs") -> KrylovResult:
-    """Solve A x = b with right-preconditioned restarted GMRES.
+    """Solve A x = b with (preconditioned) restarted GMRES.
 
-    b, x0: (S, n, mu). ``ortho`` in {"cgs", "cgs2"}."""
-    if variant != "right":
-        raise NotImplementedError(
-            f"GMRES variant {variant!r} is not ported yet (ROADMAP queue A, "
-            "slice 4); use 'right'")
-    if ortho not in ("cgs", "cgs2"):
-        raise NotImplementedError(
-            f"orthogonalization {ortho!r} is not ported yet (ROADMAP queue "
-            "A, slice 4); use 'cgs' or 'cgs2'")
+    b, x0: (S, n, mu). ``variant`` in {"left", "right", "flexible"};
+    ``ortho`` in {"cgs", "cgs2", "mgs"}."""
+    if variant not in ("left", "right", "flexible"):
+        raise ValueError(f"unknown GMRES variant {variant!r}")
+    if ortho not in ("cgs", "cgs2", "mgs"):
+        raise ValueError(f"unknown orthogonalization {ortho!r}")
     x = torch.zeros_like(b) if x0 is None else x0
     S, n, mu = b.shape
     m = int(restart)
@@ -90,10 +107,13 @@ def gmres(op: LinearOperator, b: torch.Tensor,
     rdtype = underlying(dtype)
     dev = b.device
     eps2 = machine_eps(dtype) ** 2
+    left = variant == "left"
+    flexible = variant == "flexible"
 
-    # initializeNorm: the convergence reference is ||b|| for right
-    # preconditioning (HPDDM_iterative.hpp:922-onwards)
-    norm = torch.sqrt(op.init_norm_sq(b)).to(rdtype)
+    # initializeNorm: the convergence reference is ||b|| for right and
+    # flexible preconditioning, ||M^-1 b|| for left
+    # (HPDDM_iterative.hpp:922-onwards)
+    norm = torch.sqrt(op.init_norm_sq(op.apply(b) if left else b)).to(rdtype)
     norm = torch.where(norm < HPDDM_EPS, torch.ones_like(norm), norm)
 
     it = 1                                   # global iteration counter
@@ -104,6 +124,8 @@ def gmres(op: LinearOperator, b: torch.Tensor,
     while not stop:
         cycle_it = it
         r = b - op.gmv(x)
+        if left:
+            r = op.apply(r)
         beta_sq = op.norm_sq(r)
         beta = torch.sqrt(beta_sq).to(rdtype)
         breakdown = bool(torch.all(beta_sq < eps2))
@@ -111,6 +133,8 @@ def gmres(op: LinearOperator, b: torch.Tensor,
 
         V = b.new_zeros((m + 1, S, n, mu))
         V[0] = r / safe_beta
+        # flexible: the preconditioned directions, kept for the update
+        Z = b.new_zeros((m, S, n, mu)) if flexible else None
         H = b.new_zeros((m, m + 1, mu))
         # accumulated rotation product Q: applying all previous Givens
         # rotations to a new column is one small matvec
@@ -122,12 +146,23 @@ def gmres(op: LinearOperator, b: torch.Tensor,
         i = 0
         all_conv = False
         while i < m and it <= max_it and not all_conv:
-            w = op.gmv(op.apply(V[i]))
+            if left:
+                w = op.apply(op.gmv(V[i]))
+            else:
+                z = op.apply(V[i])
+                w = op.gmv(z)
+                if flexible:
+                    Z[i] = z
             # --- orthogonalization against V[0..i] (rows above are zero) --
             Vi = V[: i + 1]
             h = b.new_zeros((m + 1, mu))
-            h[: i + 1] = op.gram(Vi, w)
-            w = w - torch.einsum("km,ksnm->snm", h[: i + 1], Vi)
+            if ortho == "mgs":
+                for j in range(i + 1):
+                    h[j] = op.dot(V[j], w)
+                    w = w - h[j] * V[j]
+            else:
+                h[: i + 1] = op.gram(Vi, w)
+                w = w - torch.einsum("km,ksnm->snm", h[: i + 1], Vi)
             if ortho == "cgs2":
                 # iterated CGS: one extra Gram pass, folded into the same h
                 h2 = op.gram(Vi, w)
@@ -154,8 +189,7 @@ def gmres(op: LinearOperator, b: torch.Tensor,
 
             res = torch.abs(svec[i + 1])
             crossed = res <= tol * norm
-            first_it = torch.where((first_it == 0) & crossed,
-                                   torch.full_like(first_it, it), first_it)
+            first_it = first_crossing(first_it, crossed, it)
             hist[min(it, max_it)] = (res / norm).to(rdtype)
             all_conv = bool(torch.all(crossed))
             i += 1
@@ -168,11 +202,11 @@ def gmres(op: LinearOperator, b: torch.Tensor,
         y = _tri_solve_masked(H, svec, count)
         col = torch.arange(m, device=dev)[:, None] < count
         y = torch.where(col, y, torch.zeros_like(y))
-        x = x + op.apply(torch.einsum("km,ksnm->snm", y, V[:m]))
+        if flexible:
+            x = x + torch.einsum("km,ksnm->snm", y, Z)
+        else:
+            u = torch.einsum("km,ksnm->snm", y, V[:m])
+            x = x + (u if left else op.apply(u))
         stop = all_conv or it > max_it or breakdown
 
-    it_per_rhs = torch.where(first_it > 0, first_it,
-                             torch.full_like(first_it, min(it - 1, max_it)))
-    return KrylovResult(x=x, iterations=int(torch.max(it_per_rhs)),
-                        it_per_rhs=it_per_rhs, rel_res=res / norm,
-                        converged=first_it > 0, history=hist)
+    return krylov_result(x, first_it, it, max_it, res / norm, hist)

@@ -1,5 +1,6 @@
 """The CUDA kernels on the card (skipped without a CUDA GPU): DIA SpMV (B1),
-ELL SpMV (B4) and the one-pass exchange (B5).
+DIA SpMM in both panel layouts (B2/B3), ELL SpMV (B4) and the one-pass
+exchange (B5).
 
 This file imports no JAX, so it also runs on a machine without it:
 
@@ -80,6 +81,67 @@ def test_spmm_single_rhs_never_runs_plain_on_cuda(cuda):
     assert kmod.launches == before + 1
 
 
+SPMM_CASES = [(4, 2601, (-50, -1, 0, 1, 50)), (64, 4356, (-64, -1, 0, 1, 64)),
+              (3, 1000, (-3, 0, 7)), (2, 300, (-400, -1, 0, 350)),
+              (5, 777, (0,)), (2, 513, (9,))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mu", [2, 3, 8, 9])
+@pytest.mark.parametrize("S,n,offsets", SPMM_CASES)
+def test_spmm_kernel_matches_plain_bitwise(cuda, S, n, offsets, mu, dtype):
+    """B2 (x of shape (S, n, mu)) and B3 (xT of shape (S, mu, n)): one
+    kernel, the same sums as the plain version; mu=9 leaves a partial tile
+    of right-hand sides."""
+    rng = np.random.default_rng(S + n + mu)
+    vals = torch.as_tensor(rng.normal(size=(S, len(offsets), n)),
+                           device=cuda).to(dtype)
+    x = torch.as_tensor(rng.normal(size=(S, n, mu)), device=cuda).to(dtype)
+    xT = x.transpose(1, 2).contiguous()
+    before = kmod.spmm_launches
+    y = kmod.dia_spmm(vals, x, offsets)
+    yT = kmod.dia_spmm_muT(vals, xT, offsets)
+    torch.cuda.synchronize()
+    assert kmod.spmm_launches == before + 2
+    ref = kmod.dia_spmv_reference(vals, x, offsets)
+    assert torch.equal(y, ref)
+    assert torch.equal(yT, kmod.dia_spmm_muT_reference(vals, xT, offsets))
+    assert torch.equal(yT, ref.transpose(1, 2))
+
+
+def test_spmm_kernel_rejects_what_it_does_not_take(cuda):
+    vals = torch.zeros((2, 3, 64), device=cuda)
+    x = torch.zeros((2, 64, 4), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        kmod.dia_spmm(vals, x.transpose(0, 1).contiguous().transpose(0, 1),
+                      (0, 1, 2))
+    with pytest.raises(TypeError, match="dtypes"):
+        kmod.dia_spmm(vals, x.double(), (0, 1, 2))
+    with pytest.raises(ValueError, match="disagree"):
+        kmod.dia_spmm_muT(vals, x, (0, 1, 2))
+    with pytest.raises(ValueError, match="limits"):
+        kmod.dia_spmm(torch.zeros((2, 33, 64), device=cuda), x,
+                      tuple(range(33)))
+    with pytest.raises(ValueError, match="same CUDA device"):
+        kmod.dia_spmm(vals, x.cpu(), (0, 1, 2))
+
+
+def test_spmm_multi_rhs_never_runs_plain_on_cuda(cuda):
+    """spmm sends every DIA product with mu > 1 on the card to the SpMM
+    kernel: a dtype it does not take raises instead of running the plain
+    version."""
+    A = BatchedDIA(values=torch.ones((2, 3, 64), device=cuda,
+                                     dtype=torch.float64),
+                   offsets=(-1, 0, 1), n_max=64)
+    with pytest.raises(TypeError, match="dtypes"):
+        spmm(A, torch.ones((2, 64, 3), device=cuda, dtype=torch.float32))
+    before = (kmod.launches, kmod.spmm_launches)
+    x = torch.ones((2, 64, 3), device=cuda, dtype=torch.float64)
+    y = spmm(A, x)
+    assert (kmod.launches, kmod.spmm_launches) == (before[0], before[1] + 1)
+    assert torch.equal(y, spmm_dia(A, x))
+
+
 def test_gmv_through_kernel_matches_plain(cuda):
     gen = diffusion2d.generate(4, 40, 40, overlap=1)
     sch = Schwarz(gen.mats, gen.neighbors, gen.mappings, d=gen.d,
@@ -91,6 +153,12 @@ def test_gmv_through_kernel_matches_plain(cuda):
     y = gmv(state, x)
     assert kmod.launches == before + 1
     assert torch.equal(y, scaled_exchange(sch.dec, spmm_dia(sch.A, x)))
+    x4 = torch.as_tensor(np.random.default_rng(1).normal(
+        size=(4, sch.n_max, 4)), device=cuda)
+    before = kmod.spmm_launches
+    y4 = gmv(state, x4)
+    assert kmod.spmm_launches == before + 1
+    assert torch.equal(y4, scaled_exchange(sch.dec, spmm_dia(sch.A, x4)))
 
 
 @pytest.fixture(scope="module")

@@ -58,21 +58,28 @@ chip_smoke = root_chip_smoke()
 
 
 def _rhs(gen, n_max):
-    f = np.zeros((len(gen.n_loc), n_max, 1))
+    f = np.zeros((len(gen.n_loc), n_max, gen.f[0].shape[1]))
     for s in range(len(gen.n_loc)):
         f[s, : gen.n_loc[s]] = gen.f[s]
     return f
 
 
-def _jax_setup(S, N):
-    """(JAX state, rhs) for the main path at S subdomains of an N x N grid."""
+def _jax_schwarz(S, N):
+    """(JAX Schwarz setup after GenEO, rhs) for the main path at S
+    subdomains of an N x N grid."""
     gen = jax_d2.generate(S, N, N, overlap=1, with_neumann=True)
     sch = jax_sz.Schwarz(gen.mats, gen.neighbors, gen.mappings, d=gen.d,
                          options=JaxOptions(
                              schwarz_coarse_correction="deflated",
                              geneo_nu=10))
     sch.solve_gevp(gen.neumann)
-    return sch.build(), _rhs(gen, sch.n_max)
+    return sch, _rhs(gen, sch.n_max)
+
+
+def _jax_setup(S, N):
+    """(JAX state, rhs) for the main path at S subdomains of an N x N grid."""
+    sch, f = _jax_schwarz(S, N)
+    return sch.build(), f
 
 
 @pytest.fixture(scope="module")
@@ -88,9 +95,17 @@ def small():
 
 
 @pytest.fixture(scope="module")
-def oracle():
+def oracle_schwarz():
+    """(JAX Schwarz setup of the oracle after GenEO, rhs): GenEO paid once
+    per module."""
+    return _jax_schwarz(4, 100)
+
+
+@pytest.fixture(scope="module")
+def oracle(oracle_schwarz):
     """(JAX state, the port's copy of it, rhs, rtol of x)."""
-    jstate, f = _jax_setup(4, 100)
+    sch, f = oracle_schwarz
+    jstate = sch.build()
     return (jstate,
             interop.state_from_numpy(jax_state_arrays(jstate), device="cpu"),
             f,
@@ -154,3 +169,41 @@ def test_driver_twin_exits_zero(capsys):
 def test_driver_twin_one_level_random_rhs():
     assert driver.main(["-N", "4", "-Nx", "32", "-Ny", "32", "-device", "cpu",
                         "-generate_random_rhs", "2"]) == 0
+
+
+@pytest.mark.parametrize("name", list(chip_smoke.MULTI_ITS))
+def test_chip_smoke_multi_rhs_constants(oracle_schwarz, oracle, name):
+    """chip_smoke.py holds the card's multi-RHS and block Krylov runs at the
+    oracle to MULTI_ITS (and two residuals to MULTI_RES): they must be the
+    JAX package's CPU-f64 counts per right-hand side, solve by solve of a
+    sequence that shares one Options object. The JAX solves run without
+    compiling their loops (``jax.disable_jit``), as in
+    tests/test_torch_krylov.py."""
+    from test_torch_krylov import jax_eager_solve
+    sch, f1 = oracle_schwarz
+    which, opts, setup, want = chip_smoke.MULTI_ITS[name]
+    jstate = oracle[0]
+    if setup:                       # setup options: a state of their own
+        for k, v in setup.items():
+            sch.opt[k] = v
+        try:
+            sch._state = None
+            jstate = sch.build()
+        finally:
+            for k in setup:
+                sch.opt.remove(k)
+            sch._state = None
+    if which == "f4":
+        gen = jax_d2.generate(4, 100, 100, overlap=1, mu=4)
+        f = np.asarray(jax_sz.scaled_exchange(
+            jstate.dec, jnp.asarray(_rhs(gen, sch.n_max))))
+    else:
+        f = f1
+    opt = JaxOptions(tol=1e-6, **opts)
+    for k, want_k in enumerate(want):
+        res = jax_eager_solve(jstate, f, opt)
+        assert np.asarray(res.it_per_rhs).tolist() == want_k, (name, k)
+        if name in chip_smoke.MULTI_RES:
+            nb, nr = jax_sz.compute_residual(jstate, res.x, jnp.asarray(f))
+            np.testing.assert_allclose(float(np.max(np.asarray(nr / nb))),
+                                       chip_smoke.MULTI_RES[name], rtol=1e-3)

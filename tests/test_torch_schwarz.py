@@ -210,12 +210,16 @@ def test_unported_branches_raise(port_setup):
      "reuse_preconditioner"),
     ({"geneo_estimate_nu": 1, "geneo_threshold": 0.3},
      lambda sch, gen: sch.solve_gevp(gen.neumann), "geneo_estimate_nu"),
-    ({}, lambda sch, gen: sch.build(dtype=np.float32), "float32"),
+    ({}, lambda sch, gen: sz.Schwarz(
+        gen.mats, gen.neighbors, gen.mappings, d=gen.d,
+        options=Options(gmv_dtype="bfloat16"), device="cpu"), "gmv_dtype"),
 ])
 def test_left_out_options_raise(port_setup, options, call, match):
     """Options whose branches are not ported raise instead of running
     another path: reuse of a factorization, GenEO's eigenvalue-count
-    estimate, and factors in another dtype than the operator's."""
+    estimate, and the operator product in another dtype
+    (``-hpddm_gmv_dtype``). Factors in another dtype than the operator's
+    are ported (tests/test_torch_krylov.py)."""
     gen, _ = port_setup
     sch = sz.Schwarz(gen.mats, gen.neighbors, gen.mappings, d=gen.d,
                      options=Options(**options), device="cpu")

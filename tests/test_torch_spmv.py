@@ -101,3 +101,28 @@ def test_dia_spmv_matches_whole_row_pallas_kernel(S, Nx, Ny):
                                      interpret=True))
     got = kmod.dia_spmv_reference(A.values, torch.as_tensor(x), A.offsets)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-11, rtol=0)
+
+
+@pytest.mark.parametrize("mu", [2, 3])
+@pytest.mark.parametrize("S,Nx,Ny", [(4, 40, 40), (2, 100, 60)])
+def test_dia_spmm_matches_panel_pallas_kernels(S, Nx, Ny, mu):
+    """B2 and B3: the JAX package's panel kernels (``_dia_spmv_blocked_mu``
+    through ``spmm_dia_pallas``, ``_dia_spmv_blocked_muT`` through
+    ``spmm_dia_pallas_muT``, both in interpret mode) against the port's
+    ``dia_spmm`` / ``dia_spmm_muT``, which take their plain versions on CPU
+    tensors (no launch counted), at atol 1e-11 as B7's test."""
+    from hpddm_tpu.ops.pallas_spmv import spmm_dia_pallas_muT
+    ref_A = jax_pack(jax_d2.generate(S, Nx, Ny, overlap=1).mats)
+    A = pack_local_matrices(diffusion2d.generate(S, Nx, Ny, overlap=1).mats,
+                            device="cpu")
+    x = np.random.default_rng(S * 100 + mu).normal(size=(S, A.n_max, mu))
+    xT = np.ascontiguousarray(x.transpose(0, 2, 1))
+    y = kmod.dia_spmm(A.values, torch.as_tensor(x), A.offsets)
+    yT = kmod.dia_spmm_muT(A.values, torch.as_tensor(xT), A.offsets)
+    assert kmod.spmm_launches == 0
+    want = np.asarray(spmm_dia_pallas(ref_A, jnp.asarray(x), interpret=True))
+    wantT = np.asarray(spmm_dia_pallas_muT(ref_A, jnp.asarray(xT),
+                                           interpret=True))
+    np.testing.assert_allclose(y.numpy(), want, atol=1e-11, rtol=0)
+    np.testing.assert_allclose(yT.numpy(), wantT, atol=1e-11, rtol=0)
+    assert torch.equal(yT, y.transpose(1, 2))
