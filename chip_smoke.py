@@ -7,16 +7,19 @@ Phases (any failure exits non-zero before the last line is printed):
 
 1. device: a CUDA GPU is required; TF32 is switched off for matmuls and
    cuDNN, so float32 products run in full float32;
-2. build: the CUDA kernels are compiled from ``hpddm_tpu_torch/csrc``;
-3. kernel vs plain: the DIA SpMV kernel against its plain PyTorch version
-   on the card, in f32 and f64, at the oracle shapes, the card-scale
-   shapes and edge cases;
+2. build: the CUDA kernels are compiled from ``hpddm_tpu_torch/csrc``,
+   with each kernel's registers, shared memory and spills as ptxas
+   reports them;
+3. kernel vs plain: the DIA SpMV kernel (B1) against its plain PyTorch
+   version on the card, bitwise, in f32 and f64, at ``DIA_CASES``: the
+   oracle and card-scale shapes and the edges of the kernel's paths;
 4. oracle parity: the two-level GenEO-RAS + GMRES main path at 100x100,
    S=4, nu=10, deflated, in f64, must take exactly the JAX package's
    CPU-f64 iteration counts (``ORACLE_ITS``); then the same run in f32;
 5. card scale: the main path at 512x512, S=64, overlap 1, nu=10, tol 1e-6,
-   with setup phases, solve time, peak memory, kernel launch counts and
-   the time of one gmv through the kernel and through the plain version;
+   with setup phases, solve time, peak memory, kernel launch counts,
+   plain-version calls (must be 0) and the time of one gmv through the
+   kernel and through the plain version;
 6. kernels vs plain, slice 2: the ELL SpMV kernel (B4) and the one-pass
    exchange kernel (B5) against their plain PyTorch versions on the card,
    in f32 and f64, at the unstructured test size, at card size, at a
@@ -34,8 +37,9 @@ Phases (any failure exits non-zero before the last line is printed):
    gmv;
 9. kernel vs plain, slice 4: the DIA SpMM kernel in both panel layouts,
    (S, n, mu) (B2, ``dia_spmm``) and (S, mu, n) (B3, ``dia_spmm_muT``),
-   against the plain version in f32 and f64 at phase 3's shapes and
-   mu in {2, 3, 4, 8, 9}, and mu=640 (the coarse panel) at card size;
+   against the plain version, bitwise, in f32 and f64 at phase 3's shapes
+   and every mu of ``SPMM_MUS``, and mu=640 (the coarse panel) at card
+   size;
 10. multi-RHS parity: every method and sequence of ``MULTI_ITS`` at the
    oracle in f64 must take the JAX package's CPU-f64 counts per
    right-hand side (one iteration of slack for ``MULTI_SLACK``), with
@@ -46,9 +50,10 @@ Phases (any failure exits non-zero before the last line is printed):
    bgmres over 4 consistent random right-hand sides (best of 3 after a
    warm-up; time per right-hand side beside phase 5's single-RHS solve),
    a recycled gcrodr sequence at mu=1, peak memory, launch counts and
-   plain-version calls (must be 0), B2 at mu=4 and at the coarse panel
-   against its plain version, its bound and torch.sparse.mm, one gmv at
-   mu=4 and the time of bgmres's block least squares.
+   plain-version calls (must be 0), B2 at mu=4 and B2 and B3 at the
+   coarse panel against their plain versions (bitwise), their bounds and
+   torch.sparse.mm, one gmv at mu=4 and the time of bgmres's block least
+   squares.
 
 Phase 5 drives the DIA path, phase 8 the unstructured path and phase 11
 the multi-RHS path, each with its kernels' launch counts set to 0 just
@@ -270,14 +275,27 @@ def solve_checked(state, f, opt, tol):
     return res, checked_residual(state, f, res)
 
 
-# the DIA kernels' check shapes: the oracle, the card cell, a ragged n,
-# |offset| >= n, a single and a single shifted diagonal
+# the DIA kernels' check shapes: the oracle (odd n: B1's and B3's scalar
+# units with the unrolled 5-diagonal loop), the card cell (16-byte units),
+# a ragged n, |offset| >= n, a single and a single shifted diagonal (the
+# run-time diagonal loop), n below one block's rows (even and odd), an odd
+# n with 5 diagonals, one subdomain, and an offset span wider than most of
+# the rows (few units without bounds checks)
 DIA_CASES = [("oracle", 4, 2601, (-50, -1, 0, 1, 50)),
              ("card", 64, 4356, (-64, -1, 0, 1, 64)),
              ("ragged n", 3, 1000, (-3, 0, 7)),
              ("|offset| >= n", 2, 300, (-400, -1, 0, 350)),
              ("single diagonal", 5, 777, (0,)),
-             ("single shifted diagonal", 2, 513, (9,))]
+             ("single shifted diagonal", 2, 513, (9,)),
+             ("n below one block", 3, 40, (-2, 0, 1)),
+             ("odd n below one block", 2, 37, (-3, 0, 2)),
+             ("odd n, 5 diagonals", 4, 1001, (-33, -1, 0, 1, 33)),
+             ("one subdomain", 1, 4356, (-64, -1, 0, 1, 64)),
+             ("wide offset span", 2, 20000, (-9000, -1, 0, 1, 9000))]
+# the panel widths of phase 9: odd ones and ones that are not a multiple
+# of the 16-byte vector or of B3's chunk of right-hand sides; 640 (the
+# coarse panel) at the card cell only
+SPMM_MUS = (2, 3, 4, 5, 8, 9, 31, 33, 65, 640)
 
 
 def phase_kernels():
@@ -296,12 +314,10 @@ def phase_kernels():
             ref = dia_spmv_reference(vals, x, offs)
             torch.cuda.synchronize()
             err = float((y - ref).abs().max())
-            scale = float(ref.abs().max())
-            rtol = KERNEL_RTOL[str(dt).split(".")[1]]
+            same = torch.equal(y, ref)
             print(f"  kernel vs plain [{name}, S={S}, n={n}, offsets={offs}, "
-                  f"{dt}]: max|err| = {err:.3e} (max|y| = {scale:.3e}, "
-                  f"tolerance {rtol:g} * max|y|)")
-            check(err <= rtol * scale, f"kernel disagrees with plain: {name} {dt}")
+                  f"{dt}]: max|err| = {err:.3e}, bitwise equal: {same}")
+            check(same, f"kernel differs from plain: {name} {dt}")
             worst = max(worst, err)
     return worst
 
@@ -336,9 +352,11 @@ def phase_card_scale():
     S, N = 64, 512
     print(f"phase 5: card scale ({N}x{N}, S={S}, overlap 1, nu=10, f64, "
           "tol 1e-6)")
+    plain = count_plain_calls()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     kmod.launches = kmod.spmm_launches = 0   # the main path's counts from here
+    plain[0] = 0
     timings = {}
     opt, state, f = build_problem(S, N, 10, np.float64, "cuda", timings)
     after_setup = kmod.launches
@@ -348,6 +366,7 @@ def phase_card_scale():
                                warmup=1)
     launches = kmod.launches                 # read just after the main path
     spmm_launches = kmod.spmm_launches
+    plain_calls = plain[0]
     rel = checked_residual(state, f, res)
     peak = torch.cuda.max_memory_allocated()
     per_solve = (launches - after_setup) // 4
@@ -358,6 +377,7 @@ def phase_card_scale():
           f"kernel launches: setup {after_setup}, after 4 solves {launches}")
     check(spmm_setup > 0 and spmm_launches == spmm_setup,
           f"dia_spmm launches: setup {spmm_setup}, in all {spmm_launches}")
+    check(plain_calls == 0, f"{plain_calls} plain DIA calls on the card")
     print(f"  n_max {state.dec.n_max}, coarse size "
           f"{state.coarse.E_inv.shape[0]}, DIA offsets {state.A.offsets}")
     print("  setup seconds: " + ", ".join(f"{k} {v:.3f}"
@@ -371,7 +391,8 @@ def phase_card_scale():
           f"solve, {launches} in all; dia_spmm launches: {spmm_setup} in "
           f"setup (the coarse assembly's panel, mu = "
           f"{state.coarse.E_inv.shape[0]}; its time is the 'coarse' setup "
-          f"phase), {spmm_launches} in all")
+          f"phase), {spmm_launches} in all; plain DIA calls on the card "
+          f"{plain_calls}")
 
     # kernel and gmv times: comparisons, not counted as main-path launches
     x = state.dec.d[:, :, None] * torch.ones_like(f)
@@ -403,7 +424,7 @@ def phase_card_scale():
     return kernel_record(
         "dia_spmv", "hpddm_tpu_torch/csrc/dia_spmv.cu",
         "hpddm_tpu/ops/pallas_spmv.py:98", launches, None, k_ms, p_ms,
-        b_ms, b_by, lib_ms), g_k, (opt, state, best)
+        b_ms, b_by, lib_ms), g_k, (opt, state, best, spmm_setup)
 
 
 def random_ell(rng, S, n, w, band, pad_row=False):
@@ -775,8 +796,8 @@ def phase_unstructured_card(grid_gmv_ms):
 
 def phase_kernels_spmm():
     """Phase 9: B2 (dia_spmm, x of shape (S, n, mu)) and B3 (dia_spmm_muT,
-    (S, mu, n)) against the plain version on the card; returns the largest
-    |difference|."""
+    (S, mu, n)) against the plain version on the card, bitwise; returns the
+    largest |difference|."""
     import torch
     from hpddm_tpu_torch.ops import dia_spmv as kmod
 
@@ -785,32 +806,29 @@ def phase_kernels_spmm():
     worst = 0.0
     for name, S, n, offs in DIA_CASES:
         vals_np = rng.normal(size=(S, len(offs), n))
-        for mu in (2, 3, 4, 8, 9, 640):
-            if mu == 640 and name != "card":
-                continue                      # the coarse panel: card only
-            x_np = rng.normal(size=(S, n, mu))
-            for dt in (torch.float64, torch.float32):
-                vals = torch.as_tensor(vals_np, device="cuda").to(dt)
-                x = torch.as_tensor(x_np, device="cuda").to(dt)
+        mus = [mu for mu in SPMM_MUS if mu != 640 or name == "card"]
+        x_np = {mu: rng.normal(size=(S, n, mu)) for mu in mus}
+        for dt in (torch.float64, torch.float32):
+            vals = torch.as_tensor(vals_np, device="cuda").to(dt)
+            errs = []
+            for mu in mus:
+                x = torch.as_tensor(x_np[mu], device="cuda").to(dt)
                 xT = x.transpose(1, 2).contiguous()
                 y = kmod.dia_spmm(vals, x, offs)
                 yT = kmod.dia_spmm_muT(vals, xT, offs)
                 ref = kmod.dia_spmv_reference(vals, x, offs)
                 torch.cuda.synchronize()
-                err = max(float((y - ref).abs().max()),
-                          float((yT - ref.transpose(1, 2)).abs().max()))
-                scale = float(ref.abs().max())
+                errs.append(max(float((y - ref).abs().max()),
+                                float((yT - ref.transpose(1, 2)).abs().max())))
                 same = torch.equal(y, ref) and \
                     torch.equal(yT, ref.transpose(1, 2))
-                rtol = KERNEL_RTOL[dtype_name(dt)]
-                print(f"  dia_spmm / dia_spmm_muT vs plain [{name}, S={S}, "
-                      f"n={n}, offsets={offs}, mu={mu}, {dt}]: max|err| = "
-                      f"{err:.3e} (max|y| = {scale:.3e}, tolerance {rtol:g} "
-                      f"* max|y|), bitwise equal: {same}")
-                check(err <= rtol * scale,
-                      f"dia_spmm disagrees with plain: {name} mu={mu} {dt}")
-                worst = max(worst, err)
+                check(same, f"dia_spmm / dia_spmm_muT differ from plain: "
+                      f"{name} mu={mu} {dt}")
                 del y, yT, ref, x, xT
+            print(f"  dia_spmm / dia_spmm_muT vs plain [{name}, S={S}, n={n}, "
+                  f"offsets={offs}, {dt}], mu {', '.join(map(str, mus))}: "
+                  f"bitwise equal, max|err| = {max(errs):.3e}")
+            worst = max(worst, max(errs))
     return worst
 
 
@@ -898,23 +916,28 @@ def phase_multi_parity():
               f"f32 {method} gates")
 
 
+_PLAIN_CALLS = []
+
+
 def count_plain_calls():
-    """Wrap the DIA plain version where the port reaches it, counting the
-    calls on CUDA tensors: a run through the kernels makes none. Returns
+    """Wrap the DIA plain version where the port reaches it (once), counting
+    the calls on CUDA tensors: a run through the kernels makes none. Returns
     the counter (a one-element list)."""
     from hpddm_tpu_torch.ops import dia_spmv as kmod
     from hpddm_tpu_torch.ops import spmv
 
-    calls = [0]
+    if _PLAIN_CALLS:
+        return _PLAIN_CALLS
+    _PLAIN_CALLS.append(0)
     plain = kmod.dia_spmv_reference
 
     def counted(vals, x, offsets):
         if x.is_cuda:
-            calls[0] += 1
+            _PLAIN_CALLS[0] += 1
         return plain(vals, x, offsets)
 
     kmod.dia_spmv_reference = spmv.dia_spmv_reference = counted
-    return calls
+    return _PLAIN_CALLS
 
 
 def phase_multi_card(card):
@@ -932,7 +955,8 @@ def phase_multi_card(card):
     from hpddm_tpu_torch.solvers.krylov import make_operator, solve
     from hpddm_tpu_torch.timing import cold_events_ms, events_ms, timed
 
-    _, state, single_best = card             # phase 5's state and solve time
+    # phase 5's state, solve time and coarse-panel launches in setup
+    _, state, single_best, panel_launches = card
     dec = state.dec
     S, n = dec.S, dec.n_max
     print(f"phase 11: multi-RHS card scale (512x512, S={S}, nu=10, f64, "
@@ -986,42 +1010,64 @@ def phase_multi_card(card):
     check(launches[1] > 0, "no dia_spmm launch on the multi-RHS path")
     check(plain_calls == 0, f"{plain_calls} plain DIA calls on the card")
 
-    # B2 timings and checks: not counted as main-path launches
+    # B2 and B3 timings and checks: not counted as main-path launches. The
+    # library call is torch.sparse.mm on the (S n, mu) panel: the same map
+    # as both layouts' kernels
     vals, offs = state.A.values, state.A.offsets
     csr = dia_csr(vals, offs)
     nnz = int(torch.count_nonzero(vals))
-    rec = None
-    worst = 0.0
+    recs = []
     for mu in (4, state.coarse.E_inv.shape[0]):
         x = torch.as_tensor(rng.normal(size=(S, n, mu)), device="cuda")
-        k_ms = cold_events_ms(lambda: kmod.dia_spmm(vals, x, offs))
-        p_ms = cold_events_ms(lambda: kmod.dia_spmv_reference(vals, x, offs),
-                              reps=10 if mu > 4 else 30)
         xT = x.transpose(1, 2).contiguous()
+        ref = kmod.dia_spmv_reference(vals, x, offs)
+        y = kmod.dia_spmm(vals, x, offs)
+        yT = kmod.dia_spmm_muT(vals, xT, offs)
+        err = max(float((y - ref).abs().max()),
+                  float((yT - ref.transpose(1, 2)).abs().max()))
+        check(torch.equal(y, ref) and torch.equal(yT, ref.transpose(1, 2)),
+              f"dia_spmm / dia_spmm_muT differ from plain at mu={mu}")
+        del y, yT, ref
+        reps = 10 if mu > 4 else 30
+        k_ms = cold_events_ms(lambda: kmod.dia_spmm(vals, x, offs))
         t_ms = cold_events_ms(lambda: kmod.dia_spmm_muT(vals, xT, offs))
+        p_ms = cold_events_ms(lambda: kmod.dia_spmv_reference(vals, x, offs),
+                              reps=reps)
+        pT_ms = cold_events_ms(
+            lambda: kmod.dia_spmm_muT_reference(vals, xT, offs), reps=reps)
         k_warm = events_ms(lambda: kmod.dia_spmm(vals, x, offs), 20)
-        xs = x.reshape(-1, mu)
-        lib_ms = library_ms(csr, xs)
+        t_warm = events_ms(lambda: kmod.dia_spmm_muT(vals, xT, offs), 20)
+        lib_ms = library_ms(csr, x.reshape(-1, mu))
         nbytes = vals.numel() * 8 + 2 * x.numel() * 8
         b_ms, b_by = bound(nbytes, 2 * nnz * mu, vals.dtype)
-        y = kmod.dia_spmm(vals, x, offs)
-        err = float((y - kmod.dia_spmv_reference(vals, x, offs)).abs().max())
-        worst = max(worst, err)
         lib_txt = "not timed" if lib_ms is None else f"{lib_ms * 1e3:.2f} us"
-        print(f"  dia_spmm at (S={S}, nd={len(offs)}, n={n}) f64, mu={mu}: "
-              f"kernel {k_ms * 1e3:.2f} us ((S, mu, n) layout "
-              f"{t_ms * 1e3:.2f} us), plain {p_ms * 1e3:.2f} us, "
-              f"torch.sparse.mm {lib_txt}, all with L2 flushed; kernel "
-              f"{k_warm * 1e3:.2f} us back to back; bound {b_ms * 1e3:.2f} us "
-              f"({b_by}; {nbytes / 1e6:.2f} MB) = {100 * b_ms / k_ms:.1f}% of "
-              f"the kernel's cold time, {nbytes / (k_ms * 1e-3) / 1e9:.0f} "
-              f"GB/s; max|kernel - plain| {err:.3e}")
-        if mu == 4:
-            rec = kernel_record(
-                "dia_spmm", "hpddm_tpu_torch/csrc/dia_spmm.cu",
-                "hpddm_tpu/ops/pallas_spmv.py:167", launches[1], worst, k_ms,
-                p_ms, b_ms, b_by, lib_ms)
-        del x, xT, xs, y
+        print(f"  dia_spmm (B2) / dia_spmm_muT (B3) at (S={S}, nd={len(offs)}, "
+              f"n={n}) f64, mu={mu}: kernel {k_ms * 1e3:.2f} / "
+              f"{t_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} / "
+              f"{pT_ms * 1e3:.2f} us, torch.sparse.mm {lib_txt}, all with L2 "
+              f"flushed; kernel {k_warm * 1e3:.2f} / {t_warm * 1e3:.2f} us "
+              f"back to back; bound {b_ms * 1e3:.2f} us ({b_by}; "
+              f"{nbytes / 1e6:.2f} MB) = {100 * b_ms / k_ms:.1f}% / "
+              f"{100 * b_ms / t_ms:.1f}% of the kernels' cold times, "
+              f"{nbytes / (k_ms * 1e-3) / 1e9:.0f} / "
+              f"{nbytes / (t_ms * 1e-3) / 1e9:.0f} GB/s; kernel / library "
+              f"{'-' if lib_ms is None else f'{k_ms / lib_ms:.3f}'} / "
+              f"{'-' if lib_ms is None else f'{t_ms / lib_ms:.3f}'}; bitwise "
+              f"equal to plain, max|kernel - plain| {err:.3e}")
+        src = "hpddm_tpu_torch/csrc/dia_spmv.cu"
+        if mu == 4:                # the multi-RHS path's launches
+            recs.append(kernel_record(
+                "dia_spmm", src, "hpddm_tpu/ops/pallas_spmv.py:167",
+                launches[1], err, k_ms, p_ms, b_ms, b_by, lib_ms))
+        else:                      # the coarse panel: one launch in setup;
+            recs.append(kernel_record(   # no solver path calls B3
+                f"dia_spmm mu={mu}", src, "hpddm_tpu/ops/pallas_spmv.py:167",
+                panel_launches, err, k_ms, p_ms, b_ms, b_by, lib_ms))
+            recs.append(kernel_record(
+                f"dia_spmm_muT mu={mu}", src,
+                "hpddm_tpu/ops/pallas_spmv.py:253", 0, err, t_ms, pT_ms,
+                b_ms, b_by, lib_ms))
+        del x, xT
     x4 = (dec.d[:, :, None] * torch.ones_like(f)).contiguous()
     g4 = events_ms(lambda: gmv(state, x4), 50)
     print(f"  gmv at mu=4: {g4 * 1e3:.2f} us (best of 5 x 50)")
@@ -1035,8 +1081,7 @@ def phase_multi_card(card):
     print(f"  bgmres's block least squares ({m * 4}x{m * 4} eigh) "
           f"{ls_ms * 1e3:.1f} us and CholQR of one block {qr_ms * 1e3:.1f} us "
           "per call (best of 5 x 5)")
-    rec["max_abs_err"] = worst
-    return rec
+    return recs
 
 
 def main():
@@ -1067,6 +1112,12 @@ def main():
           f"{len(_build.sources())} sources in parallel in "
           f"{time.perf_counter() - t:.2f} s: "
           + ", ".join(os.path.basename(p) for p in libs))
+    for stem, log in sorted(_build.LOGS.items()):
+        for rec in _build.resources(log):
+            print(f"  {stem}.cu {rec['kernel']}: {rec['registers']} "
+                  f"registers, {rec['smem']} B shared memory, spills "
+                  f"{rec['spill_stores']} B stored / {rec['spill_loads']} B "
+                  "loaded (ptxas -v)")
 
     print("phase 3: kernel vs plain")
     max_err = phase_kernels()
@@ -1088,10 +1139,11 @@ def main():
     print(f"  phases 9-10: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     spmm = phase_multi_card(card)
-    spmm["max_abs_err"] = max(spmm_err, spmm["max_abs_err"])
+    for rec in spmm:
+        rec["max_abs_err"] = max(spmm_err, rec["max_abs_err"])
     print(f"  phase 11: {time.perf_counter() - t:.1f} s")
 
-    kernels = {"kernels": [dia, spmm, ell, pex]}
+    kernels = {"kernels": [dia, *spmm, ell, pex]}
     print(f"wall {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps(kernels))

@@ -4,8 +4,10 @@ Every ``csrc/<name>.cu`` is compiled with ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, ``build/lib<name>.so`` inside
 the package, at first use. The compilers of all stale sources are started
 together and run in parallel. A library is rebuilt when its source is newer
-than it. Nothing is built or loaded at import time: the CPU tests import
-every module on machines without ``nvcc``.
+than it. ``ptxas -v`` reports each kernel's registers, shared memory and
+spills; ``resources`` reads them from the last build's log. Nothing is
+built or loaded at import time: the CPU tests import every module on
+machines without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import glob
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -23,18 +26,19 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # argument types of every entry point, by source file (pointers and the
 # stream as c_void_p, so ctypes does not cut them to 32 bits)
 SIGNATURES: Dict[str, Dict[str, list]] = {
-    "dia_spmv": {f"dia_spmv_{t}": [_P, _P, _P, _I, _I, _I,
-                                   ctypes.POINTER(ctypes.c_int), _P]
-                 for t in ("f32", "f64")},
-    "dia_spmm": {f"dia_spmm_{t}": [_P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                   ctypes.POINTER(ctypes.c_int), _P]
-                 for t in ("f32", "f64")},
+    "dia_spmv": {
+        **{f"dia_spmv_{t}": [_P, _P, _P, _I, _I, _I,
+                             ctypes.POINTER(ctypes.c_int), _P]
+           for t in ("f32", "f64")},
+        **{f"dia_spmm_{t}": [_P, _P, _P, _I, _I, _I, _I, _I,
+                             ctypes.POINTER(ctypes.c_int), _P]
+           for t in ("f32", "f64")}},
     "ell_spmv": {f"ell_spmv_{t}": [_P, _P, _P, _P, _I, _I, _I, _I, _P]
                  for t in ("f32", "f64")},
     "pexchange": {f"pexchange_{t}": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
@@ -42,15 +46,20 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
 }
 
 _lib: Optional[SimpleNamespace] = None
+# the compiler's messages of the last build, by source stem
+LOGS: Dict[str, str] = {}
 
 
 def sources() -> List[str]:
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
 
 
+def _stem(src: str) -> str:
+    return os.path.splitext(os.path.basename(src))[0]
+
+
 def library_path(src: str) -> str:
-    stem = os.path.splitext(os.path.basename(src))[0]
-    return os.path.join(BUILD_DIR, f"lib{stem}.so")
+    return os.path.join(BUILD_DIR, f"lib{_stem(src)}.so")
 
 
 def _nvcc() -> str:
@@ -97,6 +106,7 @@ def build(force: bool = False) -> List[str]:
                                   f"\n{out}\n{err}")
                 else:
                     os.replace(tmp, library_path(src))
+                    LOGS[_stem(src)] = out + err
             if errors:
                 raise RuntimeError("\n".join(errors))
         finally:
@@ -118,7 +128,7 @@ def load() -> SimpleNamespace:
     build()
     fns = {}
     for src in sources():
-        stem = os.path.splitext(os.path.basename(src))[0]
+        stem = _stem(src)
         lib = ctypes.CDLL(library_path(src))
         for name, argtypes in SIGNATURES[stem].items():
             fn = getattr(lib, name)
@@ -127,3 +137,45 @@ def load() -> SimpleNamespace:
             fns[name] = fn
     _lib = SimpleNamespace(**fns)
     return _lib
+
+
+def _demangle(names: List[str]) -> List[str]:
+    """C++ names through ``c++filt`` where it is installed, else as given."""
+    tool = shutil.which("c++filt")
+    if tool is None or not names:
+        return names
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                         text=True)
+    lines = out.stdout.splitlines()
+    return lines if out.returncode == 0 and len(lines) == len(names) \
+        else names
+
+
+def resources(log: str) -> List[dict]:
+    """Each kernel's registers, static shared memory and spill bytes from
+    a ``ptxas -v`` log, in the order compiled: dicts with ``kernel`` (the
+    demangled name and template arguments, without the parameter list),
+    ``registers``, ``smem``, ``spill_stores`` and ``spill_loads``."""
+    found = []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            found.append({"kernel": m.group(1), "registers": 0, "smem": 0,
+                          "spill_stores": 0, "spill_loads": 0})
+            continue
+        if not found:
+            continue
+        cur = found[-1]
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            cur["smem"] = int(m.group(1))
+    for rec, name in zip(found, _demangle([r["kernel"] for r in found])):
+        rec["kernel"] = re.sub(r"^void ", "", name).split("(")[0]
+    return found

@@ -9,11 +9,11 @@ with x read as 0 outside [0, n), for vals (S, nd, n) and x (S, n) in f32 or
 f64. ``dia_spmm`` (``_dia_spmv_blocked_mu``, :167) computes the same
 product for a panel x (S, n, mu), and ``dia_spmm_muT``
 (``_dia_spmv_blocked_muT``, :253) for a panel with the RHS axis leading,
-xT (S, mu, n); both launch one kernel, ``csrc/dia_spmm.cu``, which reads x
-through its strides. On CUDA tensors each wrapper launches its hand-written
-kernel; on CPU tensors it runs the plain PyTorch version of the same
-function. A CUDA tensor that the kernel does not take raises; nothing falls
-back.
+xT (S, mu, n). All three launch kernels of one source,
+``csrc/dia_spmv.cu``, which takes the layout as a template parameter. On
+CUDA tensors each wrapper launches its hand-written kernel; on CPU tensors
+it runs the plain PyTorch version of the same function. A CUDA tensor that
+the kernel does not take raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -25,13 +25,13 @@ import torch
 import torch.nn.functional as F
 
 # launches of the CUDA kernels since the last reset (plain-version calls on
-# CPU tensors are not counted): ``launches`` of dia_spmv.cu (B1),
-# ``spmm_launches`` of dia_spmm.cu (B2/B3, by either layout's wrapper)
+# CPU tensors are not counted): ``launches`` by ``dia_spmv`` (B1),
+# ``spmm_launches`` by ``dia_spmm`` and ``dia_spmm_muT`` (B2/B3)
 launches = 0
 spmm_launches = 0
 
-MAX_DIAGS = 32                # DIA_MAX_DIAGS of csrc/dia_spmv.cu, dia_spmm.cu
-_MAX_S = 65535                # grid.y limit of the launch
+MAX_DIAGS = 32                # DIA_MAX_DIAGS of csrc/dia_spmv.cu
+MAX_PANEL = 2 ** 31           # one subdomain's x, n * mu, holds fewer elements
 
 
 def dia_spmv_reference(vals: torch.Tensor, x: torch.Tensor,
@@ -57,6 +57,17 @@ def dia_spmm_muT_reference(vals: torch.Tensor, xT: torch.Tensor,
         .transpose(1, 2).contiguous()
 
 
+def check_limits(name: str, S: int, nd: int, n: int, mu: int) -> None:
+    """Raise unless the kernels take S subdomains of n rows, nd diagonals
+    and mu right-hand sides: nd <= 32 and n * mu < 2^31 (a launch takes
+    whole subdomains, fewer than 2^31 elements of x; a larger S takes more
+    launches); S fits a C int."""
+    if nd > MAX_DIAGS or n * max(mu, 1) >= MAX_PANEL or S >= 2 ** 31:
+        raise ValueError(f"{name}: S={S}, nd={nd}, n={n}, mu={mu} exceed "
+                         f"the kernel's limits (nd <= {MAX_DIAGS}, n * mu < "
+                         "2^31, S < 2^31)")
+
+
 def _checked(name: str, vals: torch.Tensor, x: torch.Tensor,
              offsets: Sequence[int], shape: tuple) -> None:
     """Raise unless the kernel takes vals (S, nd, n) and x of ``shape``:
@@ -78,12 +89,7 @@ def _checked(name: str, vals: torch.Tensor, x: torch.Tensor,
                          f"{tuple(x.shape)}, {len(offsets)} offsets disagree")
     if not (vals.is_contiguous() and x.is_contiguous()):
         raise ValueError(f"{name}: vals and x must be contiguous")
-    per_sub = max(x.numel() // max(S, 1), 1)
-    if nd > MAX_DIAGS or S > _MAX_S or n * max(nd, 1) >= 2 ** 31 \
-            or per_sub >= 2 ** 31:
-        raise ValueError(f"{name}: S={S}, nd={nd}, n={n}, x {tuple(x.shape)} "
-                         f"exceed the kernel's limits (nd <= {MAX_DIAGS}, "
-                         f"S <= {_MAX_S})")
+    check_limits(name, S, nd, n, x.numel() // max(S * n, 1))
     if x.device.index != torch.cuda.current_device():
         raise ValueError(f"{name}: x on {x.device}, current device is "
                          f"cuda:{torch.cuda.current_device()}")
@@ -117,7 +123,8 @@ def dia_spmv(vals: torch.Tensor, x: torch.Tensor,
 
 def _dia_spmm(name: str, vals: torch.Tensor, x: torch.Tensor,
               offsets: Sequence[int], mu_leading: bool) -> torch.Tensor:
-    """Launch dia_spmm.cu on x (S, n, mu), or (S, mu, n) when mu_leading."""
+    """Launch the SpMM kernel on x (S, n, mu), or (S, mu, n) when
+    mu_leading."""
     global spmm_launches
     S, nd, n = vals.shape if vals.dim() == 3 else (0, 0, 0)
     mu = x.shape[1 if mu_leading else -1] if x.dim() == 3 else 0
@@ -127,10 +134,9 @@ def _dia_spmm(name: str, vals: torch.Tensor, x: torch.Tensor,
     lib = _build.load()
     fn = lib.dia_spmm_f64 if x.dtype == torch.float64 else lib.dia_spmm_f32
     y = torch.empty_like(x)
-    sn, sm = (1, n) if mu_leading else (mu, 1)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(vals.data_ptr(), x.data_ptr(), y.data_ptr(), S, nd, n, mu, sn,
-             sm, _offsets(offsets), stream)
+    err = fn(vals.data_ptr(), x.data_ptr(), y.data_ptr(), S, nd, n, mu,
+             int(mu_leading), _offsets(offsets), stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed, cudaError {err}")
     spmm_launches += 1

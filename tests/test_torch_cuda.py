@@ -37,10 +37,19 @@ def cuda():
     return torch.device("cuda")
 
 
+# the edges of the kernels' fast paths: n below one block's rows (even and
+# odd), an odd n with the unrolled diagonal count (unaligned value planes),
+# one subdomain, and an offset span wider than most of the rows
+EDGE_CASES = [(3, 40, (-2, 0, 1)), (2, 37, (-3, 0, 2)),
+              (4, 1001, (-33, -1, 0, 1, 33)), (1, 4356, (-64, -1, 0, 1, 64)),
+              (2, 20000, (-9000, -1, 0, 1, 9000))]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("S,n,offsets", [
     (4, 2601, (-50, -1, 0, 1, 50)), (64, 4356, (-64, -1, 0, 1, 64)),
-    (3, 1000, (-3, 0, 7)), (2, 300, (-400, -1, 0, 350)), (5, 777, (0,))])
+    (3, 1000, (-3, 0, 7)), (2, 300, (-400, -1, 0, 350)), (5, 777, (0,)),
+    (2, 513, (9,))] + EDGE_CASES)
 def test_kernel_matches_plain_bitwise(cuda, S, n, offsets, dtype):
     rng = np.random.default_rng(S + n)
     vals = torch.as_tensor(rng.normal(size=(S, len(offsets), n)),
@@ -83,16 +92,17 @@ def test_spmm_single_rhs_never_runs_plain_on_cuda(cuda):
 
 SPMM_CASES = [(4, 2601, (-50, -1, 0, 1, 50)), (64, 4356, (-64, -1, 0, 1, 64)),
               (3, 1000, (-3, 0, 7)), (2, 300, (-400, -1, 0, 350)),
-              (5, 777, (0,)), (2, 513, (9,))]
+              (5, 777, (0,)), (2, 513, (9,))] + EDGE_CASES
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("mu", [2, 3, 8, 9])
+@pytest.mark.parametrize("mu", [2, 3, 8, 9, 4, 5, 31, 33, 65])
 @pytest.mark.parametrize("S,n,offsets", SPMM_CASES)
 def test_spmm_kernel_matches_plain_bitwise(cuda, S, n, offsets, mu, dtype):
-    """B2 (x of shape (S, n, mu)) and B3 (xT of shape (S, mu, n)): one
-    kernel, the same sums as the plain version; mu=9 leaves a partial tile
-    of right-hand sides."""
+    """B2 (x of shape (S, n, mu)) and B3 (xT of shape (S, mu, n)): the same
+    sums as the plain version; an odd mu, or one that is not a multiple of
+    the 16-byte vector, takes the kernels' scalar paths, and a mu that is
+    not a multiple of B3's chunk of right-hand sides a partial chunk."""
     rng = np.random.default_rng(S + n + mu)
     vals = torch.as_tensor(rng.normal(size=(S, len(offsets), n)),
                            device=cuda).to(dtype)
@@ -107,6 +117,78 @@ def test_spmm_kernel_matches_plain_bitwise(cuda, S, n, offsets, mu, dtype):
     assert torch.equal(y, ref)
     assert torch.equal(yT, kmod.dia_spmm_muT_reference(vals, xT, offsets))
     assert torch.equal(yT, ref.transpose(1, 2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_spmm_kernel_coarse_panel_bitwise(cuda, dtype):
+    """B2 and B3 at the grid card cell's coarse panel (mu=640)."""
+    S, n, offsets = 64, 4356, (-64, -1, 0, 1, 64)
+    gen = torch.Generator(device=cuda).manual_seed(640)
+    vals = torch.randn((S, len(offsets), n), generator=gen, device=cuda,
+                       dtype=dtype)
+    x = torch.randn((S, n, 640), generator=gen, device=cuda, dtype=dtype)
+    ref = kmod.dia_spmv_reference(vals, x, offsets)
+    assert torch.equal(kmod.dia_spmm(vals, x, offsets), ref)
+    xT = x.transpose(1, 2).contiguous()
+    assert torch.equal(kmod.dia_spmm_muT(vals, xT, offsets),
+                       ref.transpose(1, 2))
+
+
+def _misaligned(t):
+    """A contiguous copy of t whose data starts one element past a 16-byte
+    boundary, so the kernels cannot use 16-byte vectors on it."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16 != 0
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernels_on_misaligned_tensors_bitwise(cuda, dtype):
+    """Shapes that take the 16-byte vector paths, given tensors that do not
+    start on a 16-byte boundary: the kernels take the scalar paths."""
+    S, n, offsets = 3, 4356, (-64, -1, 0, 1, 64)
+    rng = np.random.default_rng(16)
+    vals = torch.as_tensor(rng.normal(size=(S, len(offsets), n)),
+                           device=cuda).to(dtype)
+    x = torch.as_tensor(rng.normal(size=(S, n, 4)), device=cuda).to(dtype)
+    ref = kmod.dia_spmv_reference(vals, x, offsets)
+    mv, mx = _misaligned(vals), _misaligned(x)
+    assert torch.equal(kmod.dia_spmm(vals, mx, offsets), ref)
+    assert torch.equal(kmod.dia_spmm_muT(mv, _misaligned(
+        x.transpose(1, 2).contiguous()), offsets), ref.transpose(1, 2))
+    x1 = x[:, :, 0].contiguous()
+    assert torch.equal(kmod.dia_spmv(mv, _misaligned(x1), offsets),
+                       kmod.dia_spmv_reference(vals, x1, offsets))
+
+
+@pytest.mark.parametrize("kernel", ["dia_spmv", "dia_spmm", "dia_spmm_muT"])
+def test_kernels_past_2_31_elements_bitwise(cuda, kernel):
+    """A call whose x holds more than 2^31 elements (f32, 8.6 GB) runs in
+    batches of whole subdomains (2047 of 2049 in the first): the first and
+    last subdomain of each batch agree bitwise with the plain version."""
+    S = 2049
+    if kernel == "dia_spmv":
+        offsets, shape = (-1, 1), (S, 1 << 20)
+    else:
+        offsets, shape = (-33, -1, 0, 1, 33), (S, 1024, 1024)
+    n = shape[1] if kernel != "dia_spmm_muT" else shape[2]
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    try:
+        vals = torch.randn((S, len(offsets), n), generator=gen, device=cuda)
+        x = torch.randn(shape, generator=gen, device=cuda)
+        assert x.numel() > 2 ** 31
+        fn = getattr(kmod, kernel)
+        ref = kmod.dia_spmm_muT_reference if kernel == "dia_spmm_muT" \
+            else kmod.dia_spmv_reference
+        y = fn(vals, x, offsets)
+        for s in (0, 2046, 2047, S - 1):
+            assert torch.equal(y[s:s + 1],
+                               ref(vals[s:s + 1], x[s:s + 1], offsets)), s
+    finally:
+        vals = x = y = None
+        torch.cuda.empty_cache()
 
 
 def test_spmm_kernel_rejects_what_it_does_not_take(cuda):

@@ -23,6 +23,9 @@ from hpddm_tpu_torch.ops import dia_spmv as kmod
 from hpddm_tpu_torch.ops.spmv import spmm
 
 import jax.numpy as jnp
+from test_torch_gmres import root_chip_smoke
+
+chip_smoke = root_chip_smoke()
 
 
 @pytest.mark.parametrize("mu", [1, 3])
@@ -126,3 +129,90 @@ def test_dia_spmm_matches_panel_pallas_kernels(S, Nx, Ny, mu):
     np.testing.assert_allclose(y.numpy(), want, atol=1e-11, rtol=0)
     np.testing.assert_allclose(yT.numpy(), wantT, atol=1e-11, rtol=0)
     assert torch.equal(yT, y.transpose(1, 2))
+
+
+def _numpy_dia(vals, x, offsets):
+    """y = sum_k vals[:, k] * shift(x, offsets[k]) in numpy, summed in the
+    diagonal order from zero, one rounded product and one rounded sum per
+    term: the arithmetic of the plain version and of the kernels."""
+    S, nd, n = vals.shape
+    out = np.zeros_like(x)
+    for k, off in enumerate(offsets):
+        shifted = np.zeros_like(x)
+        lo, hi = max(0, -off), min(n, n - off)
+        if lo < hi:
+            shifted[:, lo:hi] = x[:, lo + off:hi + off]
+        out = out + vals[:, k].reshape((S, n) + (1,) * (x.ndim - 2)) * shifted
+    return out
+
+
+@pytest.mark.parametrize("name,S,n,offsets", chip_smoke.DIA_CASES,
+                         ids=[c[0] for c in chip_smoke.DIA_CASES])
+def test_plain_versions_at_the_smoke_shapes(name, S, n, offsets):
+    """The card holds B1, B2 and B3 bitwise to the plain versions at the
+    smoke's DIA_CASES (phases 3 and 9); here the plain versions are held
+    bitwise to numpy at the same shapes, for one right-hand side and for
+    panels in both layouts (mu=5: not a multiple of any vector width)."""
+    rng = np.random.default_rng(n)
+    vals = rng.normal(size=(S, len(offsets), n))
+    x = rng.normal(size=(S, n, 5))
+    tv = torch.as_tensor(vals)
+    y1 = kmod.dia_spmv(tv, torch.as_tensor(x[:, :, 0].copy()), offsets)
+    assert np.array_equal(y1.numpy(), _numpy_dia(vals, x[:, :, 0], offsets))
+    want = _numpy_dia(vals, x, offsets)
+    assert np.array_equal(kmod.dia_spmm(tv, torch.as_tensor(x), offsets)
+                          .numpy(), want)
+    xT = torch.as_tensor(np.ascontiguousarray(x.transpose(0, 2, 1)))
+    assert np.array_equal(kmod.dia_spmm_muT(tv, xT, offsets).numpy(),
+                          want.transpose(0, 2, 1))
+    assert kmod.launches == 0 and kmod.spmm_launches == 0
+
+
+@pytest.mark.parametrize("S,nd,n,mu", [
+    (64, 5, 4356, 640),                  # the grid card cell's coarse panel
+    (768, 5, 420, 10),                   # S * n * mu = 3.2e6
+    (2049, 5, 1024, 1024),               # S * n * mu past 2^31: two launches
+    (1, 32, 2 ** 31 - 1, 1),             # B1, the largest subdomain
+    (2 ** 31 - 1, 1, 1, 1)])
+def test_kernel_limits_take_whole_subdomains(S, nd, n, mu):
+    """The kernels' limits are per subdomain (n * mu < 2^31) and on nd,
+    not on the whole tensor: a larger S is launched in batches."""
+    kmod.check_limits("dia_spmm", S, nd, n, mu)
+
+
+@pytest.mark.parametrize("S,nd,n,mu", [
+    (4, 33, 100, 1), (1, 5, 2 ** 31, 1), (2, 5, 2 ** 16, 2 ** 15),
+    (2 ** 31, 5, 10, 1)])
+def test_kernel_limits_reject_what_the_launch_cannot_index(S, nd, n, mu):
+    with pytest.raises(ValueError, match="limits"):
+        kmod.check_limits("dia_spmm", S, nd, n, mu)
+
+
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z15dia_rows_kernelIdLi5ELi2ELi1EEvPKT_S2_PS0_iij7FastDivS4_10DiaOffsets' for 'sm_90a'
+ptxas info    : Function properties for _Z15dia_rows_kernelIdLi5ELi2ELi1EEvPKT_S2_PS0_iij7FastDivS4_10DiaOffsets
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 30 registers, used 0 barriers, 544 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z6kernelPd' for 'sm_90a'
+ptxas info    : Function properties for _Z6kernelPd
+    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 2048 bytes smem, 360 bytes cmem[0]
+"""
+
+
+def test_ptxas_resources_are_read_from_the_build_log():
+    """Phase 2 of the smoke prints each kernel's registers, shared memory
+    and spills from the ``ptxas -v`` log of the build."""
+    from hpddm_tpu_torch import _build
+
+    recs = _build.resources(PTXAS_LOG)
+    assert [(r["registers"], r["smem"], r["spill_stores"], r["spill_loads"])
+            for r in recs] == [(30, 0, 0, 0), (255, 2048, 4, 12)]
+    assert recs[0]["kernel"] in (
+        "dia_rows_kernel<double, 5, 2, 1>",
+        "_Z15dia_rows_kernelIdLi5ELi2ELi1EEvPKT_S2_PS0_iij7FastDivS4_10Dia"
+        "Offsets")                       # as given where c++filt is missing
+    assert _build.resources("") == []
+    assert "-v" in _build.NVCC_FLAGS
+
