@@ -3,11 +3,14 @@
 Every ``csrc/<name>.cu`` is compiled with ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, ``build/lib<name>.so`` inside
 the package, at first use. The compilers of all stale sources are started
-together and run in parallel. A library is rebuilt when its source is newer
-than it. ``ptxas -v`` reports each kernel's registers, shared memory and
-spills; ``resources`` reads them from the last build's log. Nothing is
-built or loaded at import time: the CPU tests import every module on
-machines without ``nvcc``.
+together and run in parallel. A library is rebuilt when its source, or a
+header (``csrc/*.cuh``) that the sources share, is newer than it.
+``load_from`` builds and loads the sources of another directory into
+another one (a parent commit's kernels, timed beside by a benchmark).
+``ptxas -v`` reports each kernel's registers, shared memory and spills;
+``resources`` reads them from the last build's log. Nothing is built or
+loaded at import time: the CPU tests import every module on machines
+without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -39,9 +42,11 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         **{f"dia_spmm_{t}": [_P, _P, _P, _I, _I, _I, _I, _I,
                              ctypes.POINTER(ctypes.c_int), _P]
            for t in ("f32", "f64")}},
-    "ell_spmv": {f"ell_spmv_{t}": [_P, _P, _P, _P, _I, _I, _I, _I, _P]
+    "ell_spmv": {f"ell_spmv_{t}": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I,
+                                   _P]
                  for t in ("f32", "f64")},
-    "pexchange": {f"pexchange_{t}": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+    "pexchange": {f"pexchange_{t}": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                     _P]
                   for t in ("f32", "f64")},
 }
 
@@ -50,16 +55,16 @@ _lib: Optional[SimpleNamespace] = None
 LOGS: Dict[str, str] = {}
 
 
-def sources() -> List[str]:
-    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+def sources(csrc: str = CSRC) -> List[str]:
+    return sorted(glob.glob(os.path.join(csrc, "*.cu")))
 
 
 def _stem(src: str) -> str:
     return os.path.splitext(os.path.basename(src))[0]
 
 
-def library_path(src: str) -> str:
-    return os.path.join(BUILD_DIR, f"lib{_stem(src)}.so")
+def library_path(src: str, build_dir: str = BUILD_DIR) -> str:
+    return os.path.join(build_dir, f"lib{_stem(src)}.so")
 
 
 def _nvcc() -> str:
@@ -73,26 +78,29 @@ def _nvcc() -> str:
     return path
 
 
-def _stale(src: str) -> bool:
-    lib = library_path(src)
+def _stale(src: str, build_dir: str) -> bool:
+    lib = library_path(src, build_dir)
+    inputs = [src, *glob.glob(os.path.join(os.path.dirname(src), "*.cuh"))]
     return not os.path.exists(lib) or \
-        os.path.getmtime(src) > os.path.getmtime(lib)
+        max(map(os.path.getmtime, inputs)) > os.path.getmtime(lib)
 
 
-def build(force: bool = False) -> List[str]:
-    """Compile every source whose library is missing or stale (all of them
-    with ``force``), one ``nvcc`` per source, all started together; returns
-    the libraries' paths. Each compile goes to a temporary file renamed
-    into place, so an interrupted build leaves no half-written library."""
-    srcs = sources()
-    todo = [s for s in srcs if force or _stale(s)]
+def build(force: bool = False, csrc: str = CSRC,
+          build_dir: str = BUILD_DIR) -> List[str]:
+    """Compile every source of ``csrc`` whose library in ``build_dir`` is
+    missing or stale (all of them with ``force``), one ``nvcc`` per source,
+    all started together; returns the libraries' paths. Each compile goes
+    to a temporary file renamed into place, so an interrupted build leaves
+    no half-written library."""
+    srcs = sources(csrc)
+    todo = [s for s in srcs if force or _stale(s, build_dir)]
     if todo:
-        os.makedirs(BUILD_DIR, exist_ok=True)
+        os.makedirs(build_dir, exist_ok=True)
         nvcc = _nvcc()
         jobs = []
         try:
             for src in todo:
-                fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+                fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
                 os.close(fd)
                 proc = subprocess.Popen(
                     [nvcc, *NVCC_FLAGS, "-o", tmp, src],
@@ -105,7 +113,7 @@ def build(force: bool = False) -> List[str]:
                     errors.append(f"nvcc failed on {src} ({proc.returncode}):"
                                   f"\n{out}\n{err}")
                 else:
-                    os.replace(tmp, library_path(src))
+                    os.replace(tmp, library_path(src, build_dir))
                     LOGS[_stem(src)] = out + err
             if errors:
                 raise RuntimeError("\n".join(errors))
@@ -116,27 +124,35 @@ def build(force: bool = False) -> List[str]:
                     proc.wait()
                 if os.path.exists(tmp):
                     os.remove(tmp)
-    return [library_path(s) for s in srcs]
+    return [library_path(s, build_dir) for s in srcs]
 
 
 def load() -> SimpleNamespace:
     """Every kernel entry point, by name, from the libraries built on first
     use, with argument and return types declared."""
     global _lib
-    if _lib is not None:
-        return _lib
-    build()
+    if _lib is None:
+        _lib = load_from(CSRC, BUILD_DIR, SIGNATURES)
+    return _lib
+
+
+def load_from(csrc: str, build_dir: str,
+              signatures: Dict[str, Dict[str, list]]) -> SimpleNamespace:
+    """The entry points that ``signatures`` names (by source stem), from
+    the sources of ``csrc`` built into ``build_dir``."""
+    build(csrc=csrc, build_dir=build_dir)
     fns = {}
-    for src in sources():
+    for src in sources(csrc):
         stem = _stem(src)
-        lib = ctypes.CDLL(library_path(src))
-        for name, argtypes in SIGNATURES[stem].items():
+        if stem not in signatures:
+            continue
+        lib = ctypes.CDLL(library_path(src, build_dir))
+        for name, argtypes in signatures[stem].items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = _I
             fns[name] = fn
-    _lib = SimpleNamespace(**fns)
-    return _lib
+    return SimpleNamespace(**fns)
 
 
 def _demangle(names: List[str]) -> List[str]:

@@ -9,7 +9,9 @@ axis ``S``:
 * ``BatchedELL``: padded fixed-width rows (values + int32 column
   indices) for unstructured operators, stored slot-major so that the
   SpMV kernel's threads (adjacent rows) read adjacent words; the SpMV is
-  a gather and a sum over the row's slots (ops/ell_spmv.py).
+  a gather and a sum over the row's slots (ops/ell_spmv.py). Every batch
+  the port builds carries the kernel's payload (narrowed columns and row
+  counts, ``ops/ell_spmv.build_payload``).
 * ``BatchedDense``: explicit dense blocks; SpMV is a batched matmul.
 
 ``pack_local_matrices`` packs per-subdomain host ``MatrixCSR`` (auto: DIA
@@ -28,6 +30,7 @@ import torch
 
 from hpddm_tpu_torch.core.csr import MatrixCSR
 from hpddm_tpu_torch.device import DEFAULT, as_device
+from hpddm_tpu_torch.ops.ell_spmv import EllPayload, build_payload
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,12 +45,26 @@ class BatchedDIA:
 class BatchedELL:
     """Padded slot-major ELL batch: values[s, j, i] = A_s[i, cols[s, j, i]]
     (the transpose of the JAX package's row-major (S, n_max, w) arrays);
-    padding slots hold value 0 and column 0."""
+    padding slots hold value 0 and column 0. ``payload``: the maps the
+    CUDA kernel reads (``from_slot_major`` builds it); a CUDA product on a
+    batch without one raises."""
     values: torch.Tensor                  # (S, w, n_max), contiguous
     cols: torch.Tensor                    # (S, w, n_max) int32, contiguous
     n_max: int
+    payload: Optional[EllPayload] = None
+
+    @staticmethod
+    def from_slot_major(values: torch.Tensor, cols: torch.Tensor,
+                        n_max: int) -> "BatchedELL":
+        """The batch of contiguous slot-major values and int32 cols, with
+        its kernel payload built on their device."""
+        return BatchedELL(values=values, cols=cols, n_max=int(n_max),
+                          payload=build_payload(values, cols))
 
     def astype(self, dtype) -> "BatchedELL":
+        """The values in dtype; the columns and the payload are kept (a
+        row count taken before the cast still bounds the row's stored
+        slots, and a slot cast to 0 adds +-0)."""
         return dataclasses.replace(self, values=self.values.to(dtype))
 
 
@@ -140,12 +157,11 @@ def pack_local_matrices(mats: Sequence[MatrixCSR], n_max: Optional[int] = None,
                 n = csr.shape[0]
                 vals[s, n:, 0] = 1.0
                 cols[s, n:, 0] = np.arange(n, n_max)
-        return BatchedELL(
-            values=torch.as_tensor(np.ascontiguousarray(
-                vals.transpose(0, 2, 1)), device=device),
-            cols=torch.as_tensor(np.ascontiguousarray(
-                cols.transpose(0, 2, 1)), device=device),
-            n_max=int(n_max))
+        return BatchedELL.from_slot_major(
+            torch.as_tensor(np.ascontiguousarray(vals.transpose(0, 2, 1)),
+                            device=device),
+            torch.as_tensor(np.ascontiguousarray(cols.transpose(0, 2, 1)),
+                            device=device), n_max)
 
     if fmt == "dense":
         vals = np.zeros((S, n_max, n_max), dtype=dtype)

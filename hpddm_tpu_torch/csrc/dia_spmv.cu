@@ -81,10 +81,7 @@
 // n * mu < 2^31 (one subdomain's x); a call with S * n * mu >= 2^31 launches
 // once per batch of subdomains.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <mutex>
+#include "kernel_util.cuh"
 
 #define DIA_MAX_DIAGS 32
 #define DIA_FIXED_ND 5   // the diagonal count with an unrolled loop
@@ -102,67 +99,6 @@ struct DiaOffsets {
   int nd, lo, hi;            // count, least and largest offset
   int off[DIA_MAX_DIAGS];
 };
-
-// x / d for x, d < 2^31 by a multiply and a shift (the round-up method of
-// Granlund and Montgomery), d known on the host
-struct FastDiv {
-  unsigned d, m, s;
-};
-
-static FastDiv fast_div(unsigned d) {
-  FastDiv f;
-  f.d = d;
-  for (f.s = 0; f.s < 31; ++f.s)
-    if ((1u << f.s) >= d) break;
-  const uint64_t one = 1;
-  f.m = (unsigned)(((one << 32) * ((one << f.s) - d)) / d + 1);
-  return f;
-}
-
-__device__ __forceinline__ unsigned divide(unsigned x, const FastDiv& f) {
-  return (__umulhi(x, f.m) + x) >> f.s;
-}
-
-__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
-
-template <typename T> struct Vec16;
-template <> struct Vec16<float> { typedef float4 type; };
-template <> struct Vec16<double> { typedef double2 type; };
-
-// V consecutive values at p: one 16-byte load when V values are 16 bytes
-// and VEC (p aligned), else V loads; STREAM: evict-first
-template <typename T, int V, bool STREAM = false, bool VEC = true>
-__device__ __forceinline__ void load_run(const T* __restrict__ p, T (&v)[V]) {
-  if constexpr (VEC && V * sizeof(T) == 16) {
-    typedef typename Vec16<T>::type W;
-    const W w = STREAM ? __ldcs(reinterpret_cast<const W*>(p))
-                       : *reinterpret_cast<const W*>(p);
-    const T* e = reinterpret_cast<const T*>(&w);
-#pragma unroll
-    for (int r = 0; r < V; ++r) v[r] = e[r];
-  } else {
-#pragma unroll
-    for (int r = 0; r < V; ++r) v[r] = STREAM ? __ldcs(p + r) : p[r];
-  }
-}
-
-template <typename T, int V>
-__device__ __forceinline__ void store_run(T* __restrict__ p, const T (&v)[V]) {
-  if constexpr (V * sizeof(T) == 16) {
-    typedef typename Vec16<T>::type W;
-    W w;
-    T* e = reinterpret_cast<T*>(&w);
-#pragma unroll
-    for (int r = 0; r < V; ++r) e[r] = v[r];
-    *reinterpret_cast<W*>(p) = w;
-  } else {
-#pragma unroll
-    for (int r = 0; r < V; ++r) p[r] = v[r];
-  }
-}
 
 // Rows contiguous, x and y (S, mu, n) (B1 at mu = 1, B3): a unit is rows
 // [i0, i0 + V) of right-hand sides [m0, m0 + CH) of subdomain s, units
@@ -271,48 +207,6 @@ dia_rhs_kernel(const T* __restrict__ vals, const T* __restrict__ x,
     store_run<T, V>(y + ((size_t)s * n + i) * mu + m, acc);
   }
 }
-
-// blocks of `kernel` (`threads` a block) resident on the whole card at once
-// (SMs x blocks per SM), queried once per kernel
-static int card_blocks(const void* kernel, int threads) {
-  static std::mutex lock;
-  static const void* keys[64];
-  static int blocks[64];
-  static int count = 0;
-  std::lock_guard<std::mutex> guard(lock);
-  for (int i = 0; i < count; ++i)
-    if (keys[i] == kernel) return blocks[i];
-  int dev = 0, sms = 0, per_sm = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
-                                                    0) != cudaSuccess)
-    return 0;
-  const int b = sms * (per_sm > 0 ? per_sm : 1);
-  if (count < 64) {
-    keys[count] = kernel;
-    blocks[count] = b;
-    ++count;
-  }
-  return b;
-}
-
-// grid of a grid-stride walk over `units`: one unit per thread where the
-// card holds them all at once (or where one_wave is false), else the card's
-// resident blocks, trimmed so that every thread takes the same number of
-// units to within one
-static unsigned grid_for(const void* kernel, int threads, unsigned units,
-                         bool one_wave) {
-  const unsigned long long need = (units + threads - 1ull) / threads;
-  const unsigned long long cap =
-      one_wave ? (unsigned long long)card_blocks(kernel, threads) : 0;
-  if (cap == 0 || need <= cap) return (unsigned)need;
-  const unsigned long long per = (need + cap - 1) / cap;
-  return (unsigned)((need + per - 1) / per);
-}
-
-static bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 // the offsets clamped to [-n, n] (a diagonal at |offset| >= n reads only
 // zeros either way)

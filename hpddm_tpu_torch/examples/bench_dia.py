@@ -20,7 +20,6 @@ bitwise to ``dia_spmv_reference``. Prints the card's name and power limit.
 import argparse
 import subprocess
 import sys
-from statistics import median
 
 import torch
 
@@ -28,27 +27,9 @@ S, N, OFFSETS = 64, 4356, (-64, -1, 0, 1, 64)
 HBM_BYTES_PER_S = 3.35e12
 
 
-def read_flushed_ms(fn, reps, flush_bytes=256 << 20):
-    """Median milliseconds of single calls of ``fn()`` with the L2 flushed
-    by a ``flush_bytes`` read before each."""
-    buf = torch.ones(flush_bytes // 4, device="cuda")
-    fn()
-    times = []
-    for _ in range(reps):
-        buf.sum()
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        fn()
-        t1.record()
-        t1.synchronize()
-        times.append(t0.elapsed_time(t1))
-    return float(median(times))
-
-
 def main(argv=None):
     from hpddm_tpu_torch.ops import dia_spmv as kmod
-    from hpddm_tpu_torch.timing import cold_events_ms
+    from hpddm_tpu_torch.timing import cold_events_ms, read_flushed_ms
 
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--reps", type=int, default=30)

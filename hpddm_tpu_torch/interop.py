@@ -15,7 +15,8 @@ Keys of ``arrays`` (numpy arrays unless stated):
 * local matrices: DIA as ``A_values`` (S, nd, n_max) and ``A_offsets``
   (tuple), or ELL as ``A_values`` (S, n_max, w) and ``A_cols`` (S, n_max,
   w), the JAX package's row-major layout; an ELL operator is stored
-  slot-major and gets the one-pass exchange plan, as ``Schwarz`` gives it;
+  slot-major with its kernel payload and gets the one-pass exchange plan,
+  as ``Schwarz`` gives them;
 * local solver (``inv``): ``factor`` (S, n_max, n_max);
 * coarse space (optional; absent for one level): ``Z``, ``E_inv``,
   ``nu_loc``; int ``nu_max``; str ``correction``;
@@ -75,10 +76,10 @@ def state_from_numpy(arrays: Dict[str, Any], device=DEFAULT,
         sub_shifts=tuple(arrays.get("sub_shifts", ())),
         **{k: int(arrays[k]) for k in DEC_INT_KEYS})
     if arrays.get("A_cols") is not None:
-        A = BatchedELL(values=f("A_values").transpose(1, 2).contiguous(),
-                       cols=t("A_cols", torch.int32).transpose(1, 2)
-                       .contiguous(),
-                       n_max=int(arrays["n_max"]))
+        A = BatchedELL.from_slot_major(
+            f("A_values").transpose(1, 2).contiguous(),
+            t("A_cols", torch.int32).transpose(1, 2).contiguous(),
+            int(arrays["n_max"]))
         dec = dataclasses.replace(dec, pexch=build_plan(dec))
     else:
         A = BatchedDIA(values=f("A_values").contiguous(),

@@ -9,8 +9,8 @@
   TPU measurement (``_MAX_PALLAS_MU``); that says nothing of this card.
 * ELL: a gather and a sum over each row's slots of the slot-major batch.
   Every ELL product on a CUDA tensor, any mu, goes through
-  the hand-written kernel (ops/ell_spmv.py), as the JAX package sends its
-  windowed ELL operators to its Pallas kernel
+  the hand-written kernel (ops/ell_spmv.py) with the batch's payload, as
+  the JAX package sends its windowed ELL operators to its Pallas kernel
   (``hpddm_tpu/ops/spmv.py:193-196``).
 * Dense: a batched matmul.
 
@@ -49,7 +49,7 @@ def spmm(A, x: torch.Tensor) -> torch.Tensor:
             return y[:, :, None]
         return dia_spmm(A.values, x.contiguous(), A.offsets)
     if isinstance(A, BatchedELL):
-        return ell_spmv(A.values, A.cols, x.contiguous())
+        return ell_spmv(A.values, A.cols, x.contiguous(), A.payload)
     if isinstance(A, BatchedDense):
         return spmm_dense(A, x)
     raise TypeError(f"unsupported matrix type {type(A)}")

@@ -13,7 +13,7 @@ from statistics import median
 
 import torch
 
-__all__ = ["events_ms", "cold_events_ms", "timed"]
+__all__ = ["events_ms", "cold_events_ms", "read_flushed_ms", "timed"]
 
 
 def events_ms(fn, reps: int = 20, blocks: int = 5) -> float:
@@ -44,6 +44,25 @@ def cold_events_ms(fn, reps: int = 30, flush_bytes: int = 256 << 20) -> float:
     times = []
     for _ in range(reps):
         flush.zero_()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        t1.synchronize()
+        times.append(t0.elapsed_time(t1))
+    return float(median(times))
+
+
+def read_flushed_ms(fn, reps: int = 30, flush_bytes: int = 256 << 20) -> float:
+    """Median milliseconds of single calls of ``fn()`` with the L2 flushed
+    by a ``flush_bytes`` read before each: the call finds clean lines, as
+    after a kernel that only reads (the local solve's bmm)."""
+    buf = torch.ones(flush_bytes // 4, device="cuda")
+    fn()
+    times = []
+    for _ in range(reps):
+        buf.sum()
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
         t0.record()

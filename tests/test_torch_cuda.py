@@ -1,6 +1,6 @@
 """The CUDA kernels on the card (skipped without a CUDA GPU): DIA SpMV (B1),
-DIA SpMM in both panel layouts (B2/B3), ELL SpMV (B4) and the one-pass
-exchange (B5).
+DIA SpMM in both panel layouts (B2/B3), ELL SpMM (B4, with its payload)
+and the one-pass exchange (B5), at mu 1, 3, 4, 33 and 640.
 
 This file imports no JAX, so it also runs on a machine without it:
 
@@ -18,11 +18,13 @@ import numpy as np
 import pytest
 import torch
 
-from hpddm_tpu_torch.core.formats import BatchedDIA
+from hpddm_tpu_torch.core.formats import (BatchedDIA, BatchedELL,
+                                          pack_local_matrices)
 from hpddm_tpu_torch.models import diffusion2d, unstructured
 from hpddm_tpu_torch.ops import dia_spmv as kmod
 from hpddm_tpu_torch.ops import ell_spmv as ek
 from hpddm_tpu_torch.parallel import pexchange as pk
+from hpddm_tpu_torch.parallel.decomposition import Decomposition
 from hpddm_tpu_torch.parallel.ops import exchange, scaled_exchange
 from hpddm_tpu_torch.precond.schwarz import Schwarz, gmv
 from hpddm_tpu_torch.ops.spmv import spmm, spmm_dia, spmm_ell
@@ -254,39 +256,121 @@ def unstr():
                    device="cuda")
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("S,w,n,mu", [(8, 11, 680, 1), (8, 11, 680, 3),
-                                      (64, 11, 4640, 1), (3, 7, 1000, 2),
-                                      (2, 5, 300, 9)])
-def test_ell_kernel_matches_plain_bitwise(cuda, S, w, n, mu, dtype):
-    rng = np.random.default_rng(S + n + mu)
+def _ragged_ell(rng, S, w, n, band=40):
+    """Slot-major values and int32 columns whose rows have random lengths
+    in [1, w] (then padding: value 0, column 0); row 0 of subdomain 0 is all
+    padding."""
     rows = np.arange(n)[None, None, :]
-    cols = np.clip(rows + rng.integers(-40, 41, size=(S, w, n)), 0, n - 1)
+    cols = np.clip(rows + rng.integers(-band, band + 1, size=(S, w, n)), 0,
+                   n - 1)
     vals = rng.normal(size=(S, w, n))
-    vals[0, :, 0] = 0.0                       # an all-padding row
-    cols[0, :, 0] = 0
-    vals = torch.as_tensor(vals, device=cuda).to(dtype)
-    cols = torch.as_tensor(cols, device=cuda, dtype=torch.int32)
-    x = torch.as_tensor(rng.normal(size=(S, n, mu)), device=cuda).to(dtype)
-    before = ek.launches
-    y = ek.ell_spmv(vals, cols, x)
-    torch.cuda.synchronize()
-    assert ek.launches == before + 1
-    assert torch.equal(y, ek.ell_spmv_reference(vals, cols, x))
+    pad = np.arange(w)[None, :, None] >= rng.integers(1, w + 1,
+                                                      size=(S, 1, n))
+    pad[0, :, 0] = True
+    vals[pad] = 0.0
+    cols[pad] = 0
+    return vals, cols
+
+
+ELL_MUS = [1, 3, 4, 33, 640]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("mu", [1, 3])
-def test_pexchange_kernel_matches_plain_bitwise(unstr, mu, dtype):
-    dec = unstr.dec
+@pytest.mark.parametrize("mu", ELL_MUS)
+@pytest.mark.parametrize("S,w,n", [(8, 11, 680), (3, 7, 1000), (2, 5, 301),
+                                   (4, 6, 256), (1, 17, 500), (64, 11, 4640)])
+def test_ell_kernel_matches_plain_bitwise(cuda, S, w, n, mu, dtype):
+    """B4 on ragged random batches: at mu=1 w below (5), at (6) and above
+    (7, 11) one pass of 6 loaded slots and several passes (17); an odd n
+    (301); at mu > 1 the slots walked in order, with warp-per-row chunks
+    where a row holds whole warps (mu=640); the card shape."""
+    if S == 64 and mu not in (1, 640):
+        pytest.skip("the card shape at mu=1 and 640 only")
+    rng = np.random.default_rng(S + n + mu)
+    vals, cols = _ragged_ell(rng, S, w, n)
+    A = BatchedELL.from_slot_major(
+        torch.as_tensor(vals, device=cuda),
+        torch.as_tensor(cols, device=cuda, dtype=torch.int32), n) \
+        .astype(dtype)
+    assert A.payload.cols.dtype == torch.uint16
+    x = torch.as_tensor(rng.normal(size=(S, n, mu)), device=cuda).to(dtype)
+    before = (ek.launches, ek.launches_by_mu[mu])
+    y = ek.ell_spmv(A.values, A.cols, x, A.payload)
+    torch.cuda.synchronize()
+    assert (ek.launches, ek.launches_by_mu[mu]) == (before[0] + 1,
+                                                    before[1] + 1)
+    assert torch.equal(y, ek.ell_spmv_payload_reference(A.values, A.payload,
+                                                        x))
+    assert torch.equal(y, ek.ell_spmv_reference(A.values, A.cols, x))
+    no_counts = dataclasses.replace(A.payload, counts=None)
+    assert torch.equal(ek.ell_spmv(A.values, A.cols, x, no_counts), y)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mu", [1, 4])
+def test_ell_kernel_int32_columns_bitwise(cuda, mu, dtype):
+    """n_max = 65,536: the payload keeps int32 columns."""
+    rng = np.random.default_rng(65536 + mu)
+    vals, cols = _ragged_ell(rng, 1, 3, 65536)
+    cols[0, 0, -1] = 65535
+    A = BatchedELL.from_slot_major(
+        torch.as_tensor(vals, device=cuda),
+        torch.as_tensor(cols, device=cuda, dtype=torch.int32), 65536) \
+        .astype(dtype)
+    assert A.payload.cols.dtype == torch.int32
+    x = torch.as_tensor(rng.normal(size=(1, 65536, mu)), device=cuda).to(dtype)
+    assert torch.equal(ek.ell_spmv(A.values, A.cols, x, A.payload),
+                       ek.ell_spmv_payload_reference(A.values, A.payload, x))
+
+
+def test_ell_kernel_without_payload_raises(cuda):
+    vals = torch.ones((2, 3, 64), device=cuda, dtype=torch.float64)
+    cols = torch.zeros((2, 3, 64), device=cuda, dtype=torch.int32)
+    x = torch.ones((2, 64, 1), device=cuda, dtype=torch.float64)
+    before = ek.launches
+    with pytest.raises(ValueError, match="payload"):
+        ek.ell_spmv(vals, cols, x)
+    with pytest.raises(ValueError, match="payload"):
+        spmm(BatchedELL(values=vals, cols=cols, n_max=64), x)
+    assert ek.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mu", ELL_MUS)
+def test_ell_kernel_on_the_parity_operator_bitwise(cuda, mu, dtype):
+    gen = unstructured.generate(8, 60, 60, overlap=2, with_neumann=False)
+    A = pack_local_matrices(gen.mats, device=cuda).astype(dtype)
+    x = torch.as_tensor(np.random.default_rng(mu).normal(
+        size=(8, A.n_max, mu)), device=cuda).to(dtype)
+    assert torch.equal(spmm(A, x), ek.ell_spmv_payload_reference(
+        A.values, A.payload, x))
+
+
+def _isolated():
+    """Three subdomains, the last with no interface slot."""
+    idx = np.arange(4, 9)
+    return Decomposition.from_subdomains([[1], [0], []],
+                                         [[idx], [idx - 4], []], [12, 10, 7],
+                                         device="cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mu", ELL_MUS)
+@pytest.mark.parametrize("which", ["unstructured", "isolated"])
+def test_pexchange_kernel_matches_plain_bitwise(unstr, which, mu, dtype):
+    dec = unstr.dec if which == "unstructured" else _isolated()
+    plan = dec.pexch if dec.pexch is not None else pk.build_plan(dec)
     x = torch.as_tensor(np.random.default_rng(mu).normal(
         size=(dec.S, dec.n_max, mu)), device="cuda").to(dtype)
-    before = pk.launches
-    y = pk.pexchange(dec.pexch, x)
+    x[:, ::7] = -0.0
+    before = (pk.launches, pk.launches_by_mu[mu])
+    y = pk.pexchange(plan, x)
     torch.cuda.synchronize()
-    assert pk.launches == before + 1
-    assert torch.equal(y, pk.pexchange_reference(dec.pexch, x))
-    assert torch.equal(y, exchange(dataclasses.replace(dec, pexch=None), x))
+    assert (pk.launches, pk.launches_by_mu[mu]) == (before[0] + 1,
+                                                    before[1] + 1)
+    assert torch.equal(y, pk.pexchange_reference(plan, x))
+    plain = exchange(dataclasses.replace(dec, pexch=None), x)
+    assert y.cpu().numpy().tobytes() == plain.cpu().numpy().tobytes()
 
 
 def test_ell_spmm_and_planned_exchange_never_run_plain_on_cuda(unstr):

@@ -44,6 +44,7 @@ from hpddm_tpu_torch.core.formats import (BatchedDIA, BatchedELL,
                                           pack_local_matrices)
 from hpddm_tpu_torch.examples import schwarz as grid_driver
 from hpddm_tpu_torch.examples import unstructured as driver
+from hpddm_tpu_torch.examples.library_ops import exchange_csr
 from hpddm_tpu_torch.models import diffusion2d, fromfile, unstructured
 from hpddm_tpu_torch.ops import ell_spmv as kmod
 from hpddm_tpu_torch.ops.spmv import spmm, spmm_ell
@@ -199,7 +200,8 @@ def test_spmm_ell_matches_jax_and_windowed_kernel(gens, mu):
 def test_pexchange_reference_equals_xla_and_pallas(setups, mu):
     jsch, _, sch, _, _ = setups
     plan = sch.dec.pexch
-    assert plan is not None and plan.slot.dtype == torch.int32
+    assert plan is not None and plan.dst.dtype == plan.rows.dtype == \
+        torch.int32 and plan.interior.dtype == torch.bool
     x = np.random.default_rng(20 + mu).normal(size=(S, sch.n_max, mu))
     x[:, ::7] = -0.0                              # signed zeros: caveat C1
     tx = torch.as_tensor(x)
@@ -280,12 +282,13 @@ def test_chip_smoke_unstructured_constants(setups):
 
 @pytest.mark.parametrize("mu", [1, 3])
 def test_chip_smoke_exchange_matrix_is_the_exchange(setups, mu):
-    """The smoke times torch.sparse.mm on I + P as the library call of the
-    exchange: that matrix must compute the exchange (rtol 1e-14: the
-    sparse product sums in its own order)."""
+    """The smoke and the bench time torch.sparse.mm on I + P
+    (examples/library_ops.py) as the library call of the exchange: that
+    matrix must compute the exchange (rtol 1e-14: the sparse product sums
+    in its own order)."""
     sch = setups[2]
     plan = sch.dec.pexch
-    E = chip_smoke.exchange_csr(plan, torch.float64)
+    E = exchange_csr(plan, torch.float64)
     x = torch.as_tensor(np.random.default_rng(30 + mu).normal(
         size=(S, sch.n_max, mu)))
     want = pexchange.pexchange_reference(plan, x)
