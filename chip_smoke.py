@@ -57,12 +57,31 @@ Phases (any failure exits non-zero before the last line is printed):
    plain-version calls (must be 0), B2 at mu=4 and B2 and B3 at the
    coarse panel against their plain versions (bitwise), their bounds and
    torch.sparse.mm, one gmv at mu=4 and the time of bgmres's block least
-   squares.
+   squares;
+12. banded grid card cell (generate_uniform 512x512, S=64, overlap 1,
+   n_max 4356, nu=10, f64, tol 1e-6): (a) banded local solves with Lanczos
+   GenEO (the JAX package's count ``BANDED_GRID_ITS``; setup phases, solve
+   time, peak memory, B1 launches in GenEO and in the solve, plain-version
+   calls 0), then Lanczos at ``BANDED_NCV`` steps; (b) dense GenEO once,
+   and inv and banded states on its vectors, which must take equal counts
+   (Lanczos at ``BANDED_NCV`` within 2 of it), the two local solves
+   agreeing to 1e-10; (c) one local
+   solve at mu=1 and 4 against the inv bmm, time per iteration,
+   banded_block_rows 1, 2 and 4 (equal counts) and the f64 factor on the
+   host and on the card (agreeing to 1e-12); (d) the f32 device factor
+   (local residuals < 5e-4);
+13. unstructured card cell through RCM, on phase 8's problem and setup:
+   (a) banded on phase 8's dense-GenEO vectors (phase 8's count exactly),
+   (b) banded with Lanczos GenEO (within 2 of it), both with phase 8's
+   true-residual gate; bandwidths, factor bytes, local solve and
+   iteration times, GenEO against phase 8's, peak memory, B4/B5 launches
+   and plain-version calls (must be 0).
 
-Phase 5 drives the DIA path, phase 8 the unstructured path and phase 11
-the multi-RHS path, each with its kernels' launch counts set to 0 just
+Phase 5 drives the DIA path, phase 8 the unstructured path, phase 11 the
+multi-RHS path, phase 12 the banded grid path and phase 13 the banded
+unstructured path, each with its kernels' launch counts set to 0 just
 before it and read just after; comparisons and timings come after the
-counts are read. The script prints one JSON line with the kernels'
+counts are read. Each phase's wall seconds are printed. The script prints one JSON line with the kernels'
 results (time, plain time, bound, library time, launches, error), the
 card's name and power limit as nvidia-smi reports them, and last
 ``{"ok": true, "device": {...}}``.
@@ -86,6 +105,17 @@ ORACLE_ITS = {1e-6: 19, 1e-8: 22}
 # k-way, GenEO nu=8, deflated); tests/test_torch_unstructured.py checks
 # them against hpddm_tpu
 UNSTR_ITS = {1e-6: 8, 1e-8: 10}
+
+# GMRES iteration count of the JAX package on the CPU in f64 at the banded
+# grid cell (generate_uniform 512x512, S=64, overlap 1, banded local
+# solves, Lanczos GenEO nu=10 at the default -hpddm_lanczos_ncv, 2 nu + 1 =
+# 21, deflated, tol 1e-6); tests/test_torch_banded.py checks it against
+# hpddm_tpu. Lanczos stops after ncv steps without a convergence test, and
+# at 21 steps its vectors are not those of the dense pencil (17 iterations
+# there); at 4 nu + 1 = 41 steps they are, and phase 12 holds that count
+# within 2 of the dense vectors'
+BANDED_GRID_ITS = 22
+BANDED_NCV = 41
 
 # iteration counts per right-hand side of the JAX package on the CPU in f64
 # at the oracle (100x100, S=4, GenEO nu=10, deflated, tol 1e-6), one list
@@ -433,18 +463,28 @@ def check_ell(name, A, mus, rng):
     for mu in mus:
         x64 = torch.as_tensor(rng.normal(size=(S, n, mu)), device="cuda")
         for dt in (torch.float64, torch.float32):
-            B, x = A.astype(dt), x64.to(dt)
+            B, x = A.astype(dt), x64.to(dt, copy=True)
             y = ek.ell_spmv(B.values, B.cols, x, B.payload)
             ref = ek.ell_spmv_payload_reference(B.values, B.payload, x)
             torch.cuda.synchronize()
             err = float((y - ref).abs().max())
             same = torch.equal(y, ref)
+            # x[0, 0] = inf: NaN where the plain version (and the full slot
+            # sum) has it, the same bits elsewhere
+            x[0, 0] = float("inf")
+            yi = ek.ell_spmv(B.values, B.cols, x, B.payload)
+            ri = ek.ell_spmv_payload_reference(B.values, B.payload, x)
+            nan = torch.isnan(ri)
+            same_inf = torch.equal(torch.isnan(yi), nan) and \
+                torch.equal(yi[~nan], ri[~nan])
             print(f"  ell_spmv vs plain [{name}, S={S}, w={w}, n={n}, "
                   f"mu={mu}, {dt}, columns {B.payload.cols.dtype}]: "
-                  f"max|err| = {err:.3e}, bitwise equal: {same}")
-            check(same, f"ell_spmv differs from plain: {name} mu={mu} {dt}")
+                  f"max|err| = {err:.3e}, bitwise equal: {same}; with "
+                  f"x[0, 0] = inf: {int(nan.sum())} NaN, equal: {same_inf}")
+            check(same and same_inf,
+                  f"ell_spmv differs from plain: {name} mu={mu} {dt}")
             worst = max(worst, err)
-            del y, ref
+            del y, ref, yi, ri
     return worst
 
 
@@ -506,9 +546,10 @@ def phase_kernels_unstructured():
 
 
 def build_unstructured(S, nx, nu, partition, device, dtype=np.float64,
-                       timings=None):
+                       timings=None, schwarz=None):
     """(generated problem, options, state, rhs) of the P1-FEM path: the
-    mesh and its decomposition in f64, the operator in dtype."""
+    mesh and its decomposition in f64, the operator in dtype. With
+    ``schwarz`` a list, the Schwarz setup object is appended to it."""
     import torch
     from hpddm_tpu_torch.core.csr import MatrixCSR
     from hpddm_tpu_torch.models import unstructured
@@ -537,6 +578,8 @@ def build_unstructured(S, nx, nu, partition, device, dtype=np.float64,
         f[s, : gen.n_loc[s]] = gen.f[s]
     if timings is not None:
         timings.update(generate=t_gen, decomposition=t_dec, **sch.timings)
+    if schwarz is not None:
+        schwarz.append(sch)
     return gen, opt, state, torch.as_tensor(f, device=device)
 
 
@@ -618,8 +661,9 @@ def phase_unstructured_card(grid_gmv_ms):
         mod.launches_by_mu.clear()
     plain[0] = 0
     timings = {}
+    sch = []
     gen, opt, state, f = build_unstructured(S, N, 10, "geometric", "cuda",
-                                            timings=timings)
+                                            timings=timings, schwarz=sch)
     after_setup = (ek.launches, pk.launches)
     opt["tol"] = 1e-6
     best, solve_s, res = timed(lambda: solve(state, f, opt=opt), reps=3,
@@ -795,7 +839,11 @@ def phase_unstructured_card(grid_gmv_ms):
     print(f"  gmv: {g_ms1 * 1e3:.2f} us (best of 5 x 50); grid gmv at the "
           f"same 262,144 dofs (phase 5) {grid_gmv_ms * 1e3:.2f} us; "
           f"unstructured / grid = {g_ms1 / grid_gmv_ms:.2f}")
-    return recs
+    # what phase 13 builds on: the problem, the setup with its dense-GenEO
+    # vectors, the inv state and the reference's numbers
+    cell = dict(gen=gen, sch=sch[0], state=state, f=f, its=res.iterations,
+                solve_s=best, geneo_s=timings["geneo"], peak=peak)
+    return recs, cell
 
 
 def phase_kernels_spmm():
@@ -1099,6 +1147,346 @@ def phase_multi_card(card):
     return recs
 
 
+def device_busy_ms(fn):
+    """(wall ms, device-busy ms) of one call of ``fn()`` under
+    torch.profiler: the kernels' and copies' device time against the
+    synchronized wall time of the call (the profiler's own overhead is
+    in the wall time). Device busy is None where the profiler records no
+    device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    return wall * 1e3, (busy * 1e-3 if busy > 0 else None)
+
+
+def local_solve_times(name, solver, dec, rng, mus=(1, 4)):
+    """{mu: (cold ms, back-to-back ms)} of one local solve of ``solver``
+    on a random consistent panel, printed with ``name``."""
+    import torch
+    from hpddm_tpu_torch.timing import cold_events_ms, events_ms
+
+    out = {}
+    for mu in mus:
+        x = torch.as_tensor(rng.normal(size=(dec.S, dec.n_max, mu)),
+                            device="cuda") * dec.d[:, :, None]
+        out[mu] = (cold_events_ms(lambda: solver.solve(x), reps=10),
+                   events_ms(lambda: solver.solve(x), reps=5, blocks=3))
+        print(f"  one local solve, {name}, mu={mu}: {out[mu][0]:.3f} ms "
+              f"with the L2 flushed, {out[mu][1]:.3f} ms back to back")
+    return out
+
+
+def factor_txt(solver):
+    """The banded solver's memory: the inverse factors, and everything it
+    keeps for a solve (the coupling blocks and their products too)."""
+    d = solver.Dinv
+    return (f"Dinv {tuple(d.shape)} {d.numel() * d.element_size() / 1e6:.2f}"
+            f" MB, {solver.nbytes / 1e6:.2f} MB in all")
+
+
+def banded_record(rec, name, launches):
+    """A copy of a kernel's record (times, errors and bound from this run)
+    with the launches of a banded path."""
+    out = dict(rec)
+    out.update(name=name, launches=launches)
+    return out
+
+
+def phase_banded_grid(dia_rec):
+    """Phase 12: banded local solves and Lanczos GenEO at the grid card
+    cell (generate_uniform 512x512, S=64, overlap 1: n_max 4356, 66x66
+    boxes, f64): (a) the main path, banded + Lanczos; (b) dense GenEO once,
+    inv and banded states on its vectors (equal counts); (c) local solve
+    times, banded_block_rows 1, 2, 4 and the host / device factor; (d) the
+    f32 device factor. Returns the B1 record of the path."""
+    import torch
+    from hpddm_tpu_torch.models import diffusion2d
+    from hpddm_tpu_torch.ops import dia_spmv as kmod
+    from hpddm_tpu_torch.ops.banded_solve import build_banded_solver
+    from hpddm_tpu_torch.options import Options
+    from hpddm_tpu_torch.precond.schwarz import Schwarz
+    from hpddm_tpu_torch.solvers.krylov import solve
+    from hpddm_tpu_torch.timing import cold_events_ms, timed
+
+    S, N = 64, 512
+    print(f"phase 12: banded grid card cell (generate_uniform {N}x{N}, "
+          f"S={S}, overlap 1, nu=10, f64, tol 1e-6)")
+    t = time.perf_counter()
+    gen = diffusion2d.generate_uniform(S, N, N, overlap=1, with_neumann=True)
+    n_max = max(gen.n_loc)
+    f_np = np.zeros((S, n_max, 1))
+    for s in range(S):
+        f_np[s, : gen.n_loc[s]] = gen.f[s]
+    print(f"  generate_uniform {time.perf_counter() - t:.3f} s; n_max "
+          f"{n_max}, boxes {gen.boxes[0][1] - gen.boxes[0][0]}x"
+          f"{gen.boxes[0][3] - gen.boxes[0][2]}")
+
+    def setup(kind, **extra):
+        opt = Options(schwarz_coarse_correction="deflated", geneo_nu=10,
+                      local_solver=kind, tol=1e-6, **extra)
+        sch = Schwarz(gen.mats, gen.neighbors, gen.mappings, d=gen.d,
+                      options=opt, device="cuda")
+        sch.set_grid_geometry(gen.boxes, N, N)
+        return opt, sch
+
+    # (a) the main path: banded + Lanczos GenEO ("auto"), counts from here
+    plain = count_plain_calls()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kmod.launches = kmod.spmm_launches = 0
+    plain[0] = 0
+    opt, sch = setup("banded")
+    f = torch.as_tensor(f_np, device="cuda")
+    sch.solve_gevp(gen.neumann)
+    b1_geneo = kmod.launches
+    state = sch.build()
+    b1_setup = kmod.launches
+    best, times, res = timed(lambda: solve(state, f, opt=opt), reps=3,
+                             warmup=1)
+    b1_all, b2_all, plain_calls = kmod.launches, kmod.spmm_launches, plain[0]
+    peak = torch.cuda.max_memory_allocated()
+    rel = checked_residual(state, f, res)
+    its_a = res.iterations
+    b1_solve = (b1_all - b1_setup) / 4
+    check(bool(res.converged.all()) and rel <= 1e-5,
+          f"banded + Lanczos: {its_a} iterations, residual {rel:.3e}")
+    check(its_a == BANDED_GRID_ITS,
+          f"banded + Lanczos: {its_a} != {BANDED_GRID_ITS} (JAX CPU f64)")
+    check(b1_geneo > 0 and b1_solve > 0,
+          f"dia_spmv launches: {b1_geneo} in GenEO, {b1_solve} per solve")
+    check(plain_calls == 0, f"{plain_calls} plain-version calls on the card")
+    tm = dict(sch.timings)
+    print(f"  (a) banded + Lanczos GenEO: {its_a} iterations (JAX CPU f64: "
+          f"{BANDED_GRID_ITS}), recomputed "
+          f"rel. residual {rel:.3e}; solve best of 3 after a warm-up "
+          f"{best:.4f} s ({', '.join(f'{x:.4f}' for x in times)}), "
+          f"{best / its_a * 1e3:.3f} ms per iteration")
+    print("  setup seconds: " + ", ".join(f"{k} {v:.3f}"
+                                          for k, v in tm.items())
+          + " (factorize = the banded factor, host f64; neumann_factor = "
+          "the host banded factor of the regularized Neumann matrices)")
+    print(f"  factor: {factor_txt(state.solver)}; peak device memory "
+          f"{peak / 2**30:.2f} GiB, {(peak - held) / 2**30:.2f} GiB above "
+          f"the {held / 2**30:.2f} GiB held by earlier phases")
+    print(f"  dia_spmv launches: {b1_geneo} in GenEO (Lanczos apply_B and "
+          f"the Neumann product), {b1_setup - b1_geneo} in build, "
+          f"{b1_solve:g} per solve, {b1_all} in all; dia_spmm {b2_all} (the "
+          f"coarse panel); plain-version calls on the card {plain_calls}")
+
+    # Lanczos at BANDED_NCV steps: the vectors of the dense pencil
+    sch.opt["lanczos_ncv"] = BANDED_NCV
+    sch.solve_gevp(gen.neumann)
+    t_ncv = sch.timings["geneo"]
+    res = solve(sch.build(), f, opt=opt)
+    its_ncv = res.iterations
+    sch.opt.remove("lanczos_ncv")
+    print(f"  Lanczos at ncv {BANDED_NCV}: GenEO {t_ncv:.3f} s, "
+          f"{its_ncv} iterations")
+
+    # (b) dense GenEO once; inv and banded on its vectors: equal counts
+    opt_d, sch_d = setup("inv")
+    t = time.perf_counter()
+    sch_d.solve_gevp(gen.neumann, method="dense")
+    t_dense = time.perf_counter() - t
+    vecs = sch_d._deflation_vectors
+    st_inv = sch_d.build()
+    sch.set_vectors(vecs)
+    st_band = sch.build()
+    its = {}
+    for name, st in (("inv", st_inv), ("banded", st_band)):
+        b, ts, r = timed(lambda: solve(st, f, opt=opt), reps=3, warmup=1)
+        rel = checked_residual(st, f, r)
+        its[name] = r.iterations
+        print(f"  (b) {name} on the dense-GenEO vectors: {r.iterations} "
+              f"iterations, recomputed rel. residual {rel:.3e}, best of 3 "
+              f"{b:.4f} s, {b / r.iterations * 1e3:.3f} ms per iteration")
+        check(rel <= 1e-5, f"{name} residual {rel:.3e}")
+    print(f"  dense GenEO {t_dense:.3f} s against Lanczos "
+          f"{tm['geneo']:.3f} s (ncv {2 * 10 + 1}) and {t_ncv:.3f} s (ncv "
+          f"{BANDED_NCV}); Lanczos counts {its_a} and {its_ncv} against the "
+          f"dense vectors' {its['inv']}")
+    check(its["banded"] == its["inv"],
+          f"banded {its['banded']} != inv {its['inv']} on the same vectors")
+    check(abs(its_ncv - its["inv"]) <= 2,
+          f"Lanczos count at ncv {BANDED_NCV} {its_ncv} not within 2 of "
+          f"{its['inv']}")
+    dec = state.dec
+    rng = np.random.default_rng(12)
+    x4 = torch.as_tensor(rng.normal(size=(S, n_max, 4)), device="cuda")
+    ya, yb = st_band.solver.solve(x4), st_inv.solver.solve(x4)
+    err = float(torch.linalg.norm(ya - yb) / torch.linalg.norm(yb))
+    print(f"  banded solve against the inverse's bmm on a random (S, n, 4) "
+          f"panel: relative difference {err:.3e}")
+    check(err <= 1e-10, f"banded and inv solves differ by {err:.3e}")
+
+    # (c) times: one local solve, banded_block_rows 1/2/4, host/device
+    band_t = local_solve_times("banded", st_band.solver, dec, rng)
+    inv_t = local_solve_times("inv bmm", st_inv.solver, dec, rng)
+    x1 = (dec.d[:, :, None] * torch.ones_like(f)).contiguous()
+    wall, busy = device_busy_ms(lambda: st_band.solver.solve(x1))
+    print(f"  one banded solve at mu=1 under torch.profiler: wall "
+          f"{wall:.3f} ms, device busy "
+          + ("not recorded" if busy is None else
+             f"{busy:.3f} ms ({100 * busy / wall:.1f}%)")
+          + f"; banded / inv bmm {band_t[1][0] / inv_t[1][0]:.3f} (mu=1, "
+          f"L2 flushed), {band_t[4][0] / inv_t[4][0]:.3f} (mu=4)")
+    del st_inv, yb
+    counts = {}
+    for r in (1, 2, 4):
+        sch.opt["banded_block_rows"] = r
+        st = st_band if r == 1 else sch.build()
+        res_r = solve(st, f, opt=opt)
+        counts[r] = res_r.iterations
+        ms = cold_events_ms(lambda: st.solver.solve(x1), reps=10)
+        print(f"  banded_block_rows {r}: factor {factor_txt(st.solver)}, "
+              f"one solve at mu=1 "
+              f"{ms:.3f} ms (L2 flushed), {res_r.iterations} iterations")
+        del st
+    sch.opt["banded_block_rows"] = 1
+    check(len(set(counts.values())) == 1,
+          f"banded_block_rows 1/2/4 counts differ: {counts}")
+    facs = {}
+    for method in ("host", "device"):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        facs[method] = build_banded_solver(
+            gen.mats, gen.boxes, n_max, dtype=torch.float64, method=method,
+            device="cuda")
+        torch.cuda.synchronize()
+        facs[method + " s"] = time.perf_counter() - t
+    xh, xd = facs["host"].solve(x4), facs["device"].solve(x4)
+    agree = float((xd - xh).abs().max() / xh.abs().max())
+    print(f"  f64 factor: host {facs['host s']:.3f} s, device "
+          f"{facs['device s']:.3f} s; solves agree to {agree:.3e}")
+    check(agree <= 1e-12, f"host and device factors differ by {agree:.3e}")
+    del facs, xh, xd
+
+    # (d) f32: the auto (device) factor solves every local system < 5e-4
+    f32 = build_banded_solver(gen.mats, gen.boxes, n_max,
+                              dtype=torch.float32, device="cuda")
+    b32 = np.zeros((S, n_max, 1), dtype=np.float32)
+    for s in range(S):
+        b32[s, : gen.n_loc[s], 0] = rng.normal(size=gen.n_loc[s])
+    x32 = f32.solve(torch.as_tensor(b32, device="cuda")).double().cpu()
+    worst = 0.0
+    for s in range(S):
+        K = gen.mats[s].scipy(expand=True)
+        n = gen.n_loc[s]
+        bs_ = b32[s, :n, 0].astype(np.float64)
+        worst = max(worst, float(np.linalg.norm(K @ x32[s, :n, 0].numpy()
+                                                - bs_) / np.linalg.norm(bs_)))
+    print(f"  f32 auto (device) factor: largest local relative residual "
+          f"{worst:.3e} (limit 5e-4)")
+    check(worst < 5e-4, f"f32 device factor residual {worst:.3e}")
+    return [banded_record(dia_rec, "dia_spmv banded grid path", b1_all)]
+
+
+def phase_banded_unstructured(cell, unstr_recs):
+    """Phase 13: the unstructured card cell (phase 8's 512x512 mesh,
+    S=64, overlap 2, geometric partition, nu=10, f64) through RCM: (a) a
+    banded state on phase 8's dense-GenEO vectors, (b) banded + Lanczos
+    GenEO. Returns the B4 and B5 records of the path."""
+    import torch
+    from hpddm_tpu_torch.ops import ell_spmv as ek
+    from hpddm_tpu_torch.parallel import pexchange as pk
+    from hpddm_tpu_torch.solvers.krylov import solve
+    from hpddm_tpu_torch.timing import timed
+
+    gen, sch, f = cell["gen"], cell["sch"], cell["f"]
+    want = cell["its"]
+    dec = sch.dec
+    print(f"phase 13: unstructured card cell through RCM (512x512 mesh, "
+          f"S={dec.S}, overlap 2, geometric partition, nu=10, f64, tol 1e-6)")
+    rng = np.random.default_rng(13)
+    inv_t = local_solve_times("inv bmm", cell.pop("state").solver, dec, rng)
+    plain = count_plain_calls()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in (ek, pk):                     # the path's counts from here
+        mod.launches = 0
+        mod.launches_by_mu.clear()
+    plain[0] = 0
+    opt = sch.opt
+    opt["local_solver"] = "banded"
+    opt["tol"] = 1e-6
+    # (a) banded on phase 8's dense-GenEO vectors
+    state = sch.build()
+    t_fac = sch.timings["factorize"]
+    best_a, times_a, res = timed(lambda: solve(state, f, opt=opt), reps=3,
+                                 warmup=1)
+    true_a = true_residual(gen, res.x)
+    its_a = res.iterations
+    solver = state.solver
+    band_t = local_solve_times("banded (RCM)", solver, dec, rng)
+    nbk, fac = solver.wy_max, factor_txt(solver)
+    del state, solver
+    # (b) banded + Lanczos GenEO ("auto")
+    sch.solve_gevp(gen.neumann)
+    state = sch.build()
+    best_b, times_b, res_b = timed(lambda: solve(state, f, opt=opt), reps=3,
+                                   warmup=1)
+    launches = (ek.launches, pk.launches)   # read just after the path
+    by_mu = (dict(ek.launches_by_mu), dict(pk.launches_by_mu))
+    plain_calls = plain[0]
+    peak = torch.cuda.max_memory_allocated()
+    true_b = true_residual(gen, res_b.x)
+    rel_b = checked_residual(state, f, res_b)
+    tm = sch.timings
+    print(f"  RCM bandwidths: max {max(sch.rcm_bandwidths)}, min "
+          f"{min(sch.rcm_bandwidths)}; nbk {nbk}; factor {fac} (dense "
+          f"coupling blocks); banded factor (host f64) {t_fac:.3f} s")
+    print(f"  (a) banded on phase 8's dense-GenEO vectors: {its_a} iterations "
+          f"(phase 8: {want}), true global rel. residual {true_a:.3e}; solve "
+          f"best of 3 {best_a:.4f} s ({', '.join(f'{x:.4f}' for x in times_a)}"
+          f"), {best_a / its_a * 1e3:.3f} ms per iteration; phase 8 (inv) "
+          f"{cell['solve_s']:.4f} s, {cell['solve_s'] / want * 1e3:.3f} ms "
+          "per iteration")
+    print(f"  (b) banded + Lanczos GenEO: {res_b.iterations} iterations, "
+          f"recomputed rel. residual {rel_b:.3e}, true global rel. residual "
+          f"{true_b:.3e}; solve best of 3 {best_b:.4f} s "
+          f"({', '.join(f'{x:.4f}' for x in times_b)}), "
+          f"{best_b / res_b.iterations * 1e3:.3f} ms per iteration")
+    print(f"  Lanczos GenEO {tm['geneo']:.3f} s (neumann_factor "
+          f"{tm['neumann_factor']:.3f}, lanczos_steps "
+          f"{tm['lanczos_steps']:.3f}, lanczos_eig {tm['lanczos_eig']:.3f}) "
+          f"against phase 8's dense GenEO {cell['geneo_s']:.3f} s")
+    print(f"  banded / inv bmm, one local solve: "
+          f"{band_t[1][0] / inv_t[1][0]:.3f} (mu=1, L2 flushed), "
+          f"{band_t[4][0] / inv_t[4][0]:.3f} (mu=4)")
+    print(f"  peak device memory {peak / 2**30:.2f} GiB, "
+          f"{(peak - held) / 2**30:.2f} GiB above the {held / 2**30:.2f} GiB "
+          f"held by earlier phases (phase 8 with inv: "
+          f"{cell['peak'] / 2**30:.2f} GiB)")
+    print(f"  launches on this path: ell_spmv {launches[0]}, pexchange "
+          f"{launches[1]}; by the panel width {by_mu[0]} / {by_mu[1]}; "
+          "plain-version calls on the card "
+          f"{plain_calls}")
+    check(its_a == want, f"banded on phase 8's vectors: {its_a} != {want}")
+    check(true_a <= 1e-5, f"(a) true residual {true_a:.3e}")
+    check(abs(res_b.iterations - want) <= 2 and true_b <= 1e-5,
+          f"banded + Lanczos: {res_b.iterations} iterations (phase 8: "
+          f"{want}), true residual {true_b:.3e}")
+    check(min(launches) > 0, f"launches on the path: {launches}")
+    check(plain_calls == 0, f"{plain_calls} plain-version calls on the card")
+    recs = {r["name"]: r for r in unstr_recs}
+    return [banded_record(recs["ell_spmv"], "ell_spmv banded RCM path",
+                          launches[0]),
+            banded_record(recs["pexchange"], "pexchange banded RCM path",
+                          launches[1])]
+
+
 def main():
     import torch
 
@@ -1138,32 +1526,47 @@ def main():
                 spilled.append(rec["kernel"])
     print(f"  kernels that spill: {', '.join(spilled) or 'none'}")
 
+    clock = [time.perf_counter()]
+
+    def lap(what):
+        now = time.perf_counter()
+        print(f"  {what}: {now - clock[0]:.1f} s of wall time")
+        clock[0] = now
+
+    lap("phases 1-2")
     print("phase 3: kernel vs plain")
     max_err = phase_kernels()
+    lap("phase 3")
     phase_oracle()
+    lap("phase 4")
     dia, grid_gmv_ms, card = phase_card_scale()
     dia["max_abs_err"] = max_err
-    t = time.perf_counter()
+    lap("phase 5")
     b4_err, b5_err = phase_kernels_unstructured()
+    lap("phase 6")
     phase_unstructured_parity()
-    print(f"  phases 6-7: {time.perf_counter() - t:.1f} s")
-    t = time.perf_counter()
-    unstr = phase_unstructured_card(grid_gmv_ms)
-    print(f"  phase 8: {time.perf_counter() - t:.1f} s")
+    lap("phase 7")
+    unstr, unstr_cell = phase_unstructured_card(grid_gmv_ms)
     for rec in unstr:
         rec["max_abs_err"] = max(rec["max_abs_err"], b4_err if
                                  rec["name"].startswith("ell") else b5_err)
-    t = time.perf_counter()
+    lap("phase 8")
     spmm_err = phase_kernels_spmm()
+    lap("phase 9")
     phase_multi_parity()
-    print(f"  phases 9-10: {time.perf_counter() - t:.1f} s")
-    t = time.perf_counter()
+    lap("phase 10")
     spmm = phase_multi_card(card)
     for rec in spmm:
         rec["max_abs_err"] = max(spmm_err, rec["max_abs_err"])
-    print(f"  phase 11: {time.perf_counter() - t:.1f} s")
+    del card
+    lap("phase 11")
+    banded = phase_banded_grid(dia)
+    lap("phase 12")
+    banded += phase_banded_unstructured(unstr_cell, unstr)
+    del unstr_cell
+    lap("phase 13")
 
-    kernels = {"kernels": [dia, *spmm, *unstr]}
+    kernels = {"kernels": [dia, *spmm, *unstr, *banded]}
     print(f"wall {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps(kernels))

@@ -42,8 +42,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         **{f"dia_spmm_{t}": [_P, _P, _P, _I, _I, _I, _I, _I,
                              ctypes.POINTER(ctypes.c_int), _P]
            for t in ("f32", "f64")}},
-    "ell_spmv": {f"ell_spmv_{t}": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I,
-                                   _P]
+    "ell_spmv": {f"ell_spmv_{t}": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I,
+                                   _I, _P]
                  for t in ("f32", "f64")},
     "pexchange": {f"pexchange_{t}": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                      _P]

@@ -81,11 +81,31 @@
 // arithmetic of the plain PyTorch version (ops/ell_spmv.py
 // `ell_spmv_payload_reference`), so the two agree to the bit on the same
 // device. No sum over the slots is split across threads. Stopping at the
-// count skips only padding slots (value 0, column 0): for finite x each
-// skipped product is +-0 and a sum that starts at +0 is never -0, so the
-// result equals the full sum (`ell_spmv_reference`) too; for a non-finite
-// x[s, 0] the full sum gives NaN where this one does not. The columns must
-// lie in [0, n) (`build_payload` checks them); they are not checked here.
+// count skips only padding slots (value 0, column 0); a row whose count is
+// below w adds one term for all of them after its last stored slot,
+// 0 * x[s, 0, m]. That term is +-0 for finite x, and a sum that starts at
+// +0 is never -0, so the result equals the full sum (`ell_spmv_reference`)
+// bitwise; for a non-finite x[s, 0] both give NaN there, as the JAX
+// package's full slot sum does. Where the term is added:
+//   * mu == 1: after the row's passes, from x[s, 0] (an L1 hit);
+//   * mu > 1 without a flag buffer: the loop runs one slot past the count,
+//     over the first padding slot (value 0, column 0);
+//   * mu > 1 with a flag buffer (the wrapper passes one where mu is a
+//     multiple of 32): a first launch flags each subdomain whose x[s, 0, :]
+//     holds a non-finite value, and only the rows of a flagged subdomain add
+//     the term.
+// Against the kernels without the term, in the same calls (bench_ell.py
+// --parent, the card cell, f64, write flush): mu=1 18.18-18.48 us against
+// 18.78-19.20; mu=4 30.24-30.59 against 29.81-30.30 (the extra slot);
+// mu=640 1736.72-1803.66 against 1777.25-1795.82 (the flags). Tried, as
+// edits of this source timed by bench_ell.py: the term after the loop
+// from x[s, 0, m] in every unit at mu > 1, 36.37 us at mu=4 and 2242.82 us
+// at mu=640 (parent 30.11 and 1777.94); one more padding slot in every
+// count of the payload, 1937.28 us at mu=640 against 1781.10 with the
+// stored slots only; the extra slot and the flags in one kernel, 32.93 us
+// at mu=4 against 29.97.
+// The columns must lie in [0, n) (`build_payload` checks them); they are
+// not checked here.
 //
 // Plain C interface (built with nvcc into a shared library, loaded with
 // ctypes): launches on the given stream, allocates nothing, synchronises
@@ -148,12 +168,16 @@ ell_rows_kernel(const T* __restrict__ vals, const IDX* __restrict__ cols,
     for (int j0 = P; j0 < cnt; j0 += P)
       acc = rows_pass<T, IDX, P>(vals + plane0, cols + plane0, xs, n, j0, cnt,
                                  cnt, acc);
+    if (cnt < w) acc = add_rn(acc, mul_rn(T(0), xs[0]));   // padding's term
     y[q] = acc;
   }
 }
 
 // mu > 1, x and y (S, n, mu): a unit is right-hand sides [m, m + V) of row
-// i of subdomain s. V > 1 only where mu % V == 0 and the pointers are
+// i of subdomain s. FLAGS: the padding's term comes from the flags x0_bad
+// (its own instantiation: one kernel for both paths cost 3 us at mu=4). The
+// flag is read after the loop: read before it, it held a register that
+// ptxas spilled. V > 1 only where mu % V == 0 and the pointers are
 // 16-byte aligned. Units are numbered in memory order, except where a row
 // holds a multiple of 32 units (chunk.d = 32 n): then a warp is 32 units
 // of one row, and consecutive warps take consecutive rows at the same
@@ -161,10 +185,11 @@ ell_rows_kernel(const T* __restrict__ vals, const IDX* __restrict__ cols,
 // its neighbours (RCM numbering: neighbouring rows share columns). The
 // slots are walked in order; the units in flight, not loads ahead, hide
 // the latency.
-template <typename T, typename IDX, int V>
+template <typename T, typename IDX, int V, bool FLAGS>
 __global__ void __launch_bounds__(kEllBlock)
 ell_rhs_kernel(const T* __restrict__ vals, const IDX* __restrict__ cols,
                const unsigned char* __restrict__ counts,
+               const unsigned char* __restrict__ x0_bad,
                const T* __restrict__ x, T* __restrict__ y, int n, int w,
                int mu, unsigned units, FastDiv panel, FastDiv row,
                FastDiv chunk, bool stream_vals) {
@@ -187,12 +212,15 @@ ell_rhs_kernel(const T* __restrict__ vals, const IDX* __restrict__ cols,
     const T* vs = vals + plane0;
     const IDX* cs = cols + plane0;
     const int cnt = counts != nullptr ? (int)counts[(size_t)s * n + i] : w;
+    // the padding's term: after the loop where the subdomain is flagged,
+    // else through the first padding slot
+    const int end = !FLAGS && cnt < w ? cnt + 1 : cnt;
     const T* xs = x + (size_t)s * n * mu + m;
     T acc[V];
 #pragma unroll
     for (int e = 0; e < V; ++e) acc[e] = T(0);
 #pragma unroll 4
-    for (int j = 0; j < cnt; ++j) {
+    for (int j = 0; j < end; ++j) {
       const size_t o = (size_t)j * n;
       const T v = stream_vals ? __ldcs(vs + o) : vs[o];
       const IDX c = stream_vals ? __ldcs(cs + o) : cs[o];
@@ -201,7 +229,29 @@ ell_rhs_kernel(const T* __restrict__ vals, const IDX* __restrict__ cols,
 #pragma unroll
       for (int e = 0; e < V; ++e) acc[e] = add_rn(acc[e], mul_rn(v, xv[e]));
     }
+    if (FLAGS && cnt < w && x0_bad[s]) {
+      T xv[V];
+      load_run<T, V>(xs, xv);
+#pragma unroll
+      for (int e = 0; e < V; ++e) acc[e] = add_rn(acc[e], mul_rn(T(0), xv[e]));
+    }
     store_run<T, V>(y + ((size_t)s * n + i) * mu + m, acc);
+  }
+}
+
+// bad[s] = 1 where x[s, 0, :] (mu values) holds a non-finite value, else 0:
+// a block per subdomain, grid-stride over the subdomains.
+template <typename T>
+__global__ void __launch_bounds__(kEllBlock)
+x0_flags_kernel(const T* __restrict__ x, unsigned char* __restrict__ bad,
+                int S, int n, int mu) {
+  for (int s = blockIdx.x; s < S; s += gridDim.x) {
+    const T* x0 = x + (size_t)s * n * mu;
+    int any = 0;
+    for (int m = threadIdx.x; m < mu; m += kEllBlock) any |= !isfinite(x0[m]);
+    any = __syncthreads_or(any);
+    if (threadIdx.x == 0) bad[s] = (unsigned char)(any != 0);
+    __syncthreads();
   }
 }
 
@@ -230,25 +280,33 @@ static int launch_rows(const T* vals, const IDX* cols,
   return 0;
 }
 
-template <typename T, typename IDX, int V>
+template <typename T, typename IDX, int V, bool FLAGS>
 static int launch_rhs(const T* vals, const IDX* cols,
-                      const unsigned char* counts, const T* x, T* y, int S,
-                      int n, int w, int mu, int batch, cudaStream_t stream) {
+                      const unsigned char* counts, unsigned char* x0_bad,
+                      const T* x, T* y, int S, int n, int w, int mu, int batch,
+                      cudaStream_t stream) {
   const unsigned row = (unsigned)(mu / V), panel = (unsigned)n * row;
-  const void* kernel = (const void*)ell_rhs_kernel<T, IDX, V>;
+  const void* kernel = (const void*)ell_rhs_kernel<T, IDX, V, FLAGS>;
   // a row's values are read by its mu / V units: streamed where they share
   // a warp
   const bool stream_vals = row <= 32;
   // rows of whole warps: a warp per row and 32 units of right-hand sides
   const FastDiv chunk = fast_div(row % 32 == 0 ? 32u * (unsigned)n : 1u);
+  if (FLAGS) {
+    x0_flags_kernel<T><<<S < 65535 ? S : 65535, kEllBlock, 0, stream>>>(
+        x, x0_bad, S, n, mu);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
   for (int s0 = 0; s0 < S; s0 += batch) {
     const int sb = S - s0 < batch ? S - s0 : batch;
     const unsigned units = (unsigned)((unsigned long long)sb * panel);
     const size_t plane = (size_t)s0 * w * n;
-    ell_rhs_kernel<T, IDX, V>
+    ell_rhs_kernel<T, IDX, V, FLAGS>
         <<<grid_for(kernel, kEllBlock, units, true), kEllBlock, 0, stream>>>(
             vals + plane, cols + plane,
             counts != nullptr ? counts + (size_t)s0 * n : nullptr,
+            FLAGS ? x0_bad + s0 : nullptr,
             x + (size_t)s0 * n * mu, y + (size_t)s0 * n * mu, n, w, mu, units,
             fast_div(panel), fast_div(row), chunk, stream_vals);
     const cudaError_t err = cudaGetLastError();
@@ -260,22 +318,30 @@ static int launch_rhs(const T* vals, const IDX* cols,
 // picks the kernel: one for mu == 1, at mu > 1 by the unit's vector width
 template <typename T, typename IDX>
 static int launch_idx(const T* vals, const IDX* cols,
-                      const unsigned char* counts, const T* x, T* y, int S,
-                      int n, int w, int mu, int batch, cudaStream_t st) {
+                      const unsigned char* counts, unsigned char* x0_bad,
+                      const T* x, T* y, int S, int n, int w, int mu, int batch,
+                      cudaStream_t st) {
   if (mu == 1)
     return launch_rows<T, IDX>(vals, cols, counts, x, y, S, n, w, batch, st);
   constexpr int V = 16 / sizeof(T);
-  if (mu % V == 0 && aligned16(x) && aligned16(y))
-    return launch_rhs<T, IDX, V>(vals, cols, counts, x, y, S, n, w, mu, batch,
-                                 st);
-  return launch_rhs<T, IDX, 1>(vals, cols, counts, x, y, S, n, w, mu, batch,
-                               st);
+  const bool vec = mu % V == 0 && aligned16(x) && aligned16(y);
+  // the flags matter only where rows stop at a count
+  if (x0_bad != nullptr && counts != nullptr)
+    return vec ? launch_rhs<T, IDX, V, true>(vals, cols, counts, x0_bad, x, y,
+                                             S, n, w, mu, batch, st)
+               : launch_rhs<T, IDX, 1, true>(vals, cols, counts, x0_bad, x, y,
+                                             S, n, w, mu, batch, st);
+  return vec ? launch_rhs<T, IDX, V, false>(vals, cols, counts, nullptr, x, y,
+                                            S, n, w, mu, batch, st)
+             : launch_rhs<T, IDX, 1, false>(vals, cols, counts, nullptr, x, y,
+                                            S, n, w, mu, batch, st);
 }
 
 template <typename T>
 static int launch(const T* vals, const void* cols, int narrow,
-                  const unsigned char* counts, const T* x, T* y, int S, int n,
-                  int w, int mu, void* stream) {
+                  const unsigned char* counts, unsigned char* x0_bad,
+                  const T* x, T* y, int S, int n, int w, int mu,
+                  void* stream) {
   if (S < 0 || n < 0 || w < 0 || mu < 0) return (int)cudaErrorInvalidValue;
   if ((long long)n * mu >= (1ll << 31)) return (int)cudaErrorInvalidValue;
   if (S == 0 || n == 0 || mu == 0) return 0;
@@ -284,27 +350,32 @@ static int launch(const T* vals, const void* cols, int narrow,
   const cudaStream_t st = (cudaStream_t)stream;
   if (narrow)
     return launch_idx<T, unsigned short>(
-        vals, (const unsigned short*)cols, counts, x, y, S, n, w, mu, batch,
-        st);
-  return launch_idx<T, int>(vals, (const int*)cols, counts, x, y, S, n, w, mu,
-                            batch, st);
+        vals, (const unsigned short*)cols, counts, x0_bad, x, y, S, n, w, mu,
+        batch, st);
+  return launch_idx<T, int>(vals, (const int*)cols, counts, x0_bad, x, y, S, n,
+                            w, mu, batch, st);
 }
 
 extern "C" {
 
 // y (S, n, mu) = the batch vals (S, w, n) with columns cols (S, w, n; uint16
 // where narrow, else int32) and row counts counts (S, n; null: w slots
-// every row) applied to x (S, n, mu)
+// every row) applied to x (S, n, mu); x0_bad: S bytes of scratch for the
+// flags of wide panels, or null (header)
 int ell_spmv_f32(const float* vals, const void* cols, int narrow,
-                 const unsigned char* counts, const float* x, float* y, int S,
-                 int n, int w, int mu, void* stream) {
-  return launch<float>(vals, cols, narrow, counts, x, y, S, n, w, mu, stream);
+                 const unsigned char* counts, unsigned char* x0_bad,
+                 const float* x, float* y, int S, int n, int w, int mu,
+                 void* stream) {
+  return launch<float>(vals, cols, narrow, counts, x0_bad, x, y, S, n, w, mu,
+                       stream);
 }
 
 int ell_spmv_f64(const double* vals, const void* cols, int narrow,
-                 const unsigned char* counts, const double* x, double* y,
-                 int S, int n, int w, int mu, void* stream) {
-  return launch<double>(vals, cols, narrow, counts, x, y, S, n, w, mu, stream);
+                 const unsigned char* counts, unsigned char* x0_bad,
+                 const double* x, double* y, int S, int n, int w, int mu,
+                 void* stream) {
+  return launch<double>(vals, cols, narrow, counts, x0_bad, x, y, S, n, w, mu,
+                        stream);
 }
 
 }  // extern "C"

@@ -21,3 +21,10 @@ def as_device(device) -> torch.device:
             f"device {str(dev)!r} was asked for but torch.cuda.is_available() "
             "is false: pass device='cpu' to run on the CPU")
     return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the work queued on ``device`` (a CUDA device; nothing to
+    wait for on the CPU): the end of every timed setup phase."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -20,10 +20,10 @@ the smoke's bracket) and by a read (``timing.read_flushed_ms``). Every
 result is held bitwise to the plain version. Prints the card's name and
 power limit.
 
-``--parent DIR``: a checkout of the parent commit; its kernel sources are
-built and timed beside, through the C interface they had there (int32
-columns and no payload for B4; an int32 slot per dof and (S, m_max, k_max)
-partner rows for B5).
+``--parent DIR``: a checkout of another commit whose kernels take the
+payload of B4 and the slot-major plan of B5 (the sources of 5e52bf2 and
+885c0ac: B4 without the scratch of its flags of non-finite x[s, 0, :]);
+its kernel sources are built and timed beside.
 """
 
 import argparse
@@ -39,12 +39,13 @@ S, NX, NU = 64, 512, 10
 HBM_BYTES_PER_S = 3.35e12
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# the parent's entry points (ell_spmv.cu and pexchange.cu before the
-# payload and the slot-major plan)
+# the parent's entry points: B4 without the flags' scratch, B5 as now
 PARENT_SIGNATURES = {
-    "ell_spmv": {f"ell_spmv_{t}": [_P, _P, _P, _P, _I, _I, _I, _I, _P]
+    "ell_spmv": {f"ell_spmv_{t}": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I,
+                                   _P]
                  for t in ("f32", "f64")},
-    "pexchange": {f"pexchange_{t}": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+    "pexchange": {f"pexchange_{t}": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                     _P]
                   for t in ("f32", "f64")},
 }
 
@@ -65,23 +66,19 @@ def card_cell():
 
 
 def parent_calls(lib, A, plan):
-    """(B4, B5) of the parent's C interface, on maps derived from this
-    tree's batch and plan."""
+    """(B4, B5) of the parent's kernels, called as this tree's wrappers
+    call theirs."""
     Sx, w, n = A.values.shape
-    slot = torch.full((Sx * n,), -1, dtype=torch.int32, device="cuda")
-    on = plan.dst.reshape(-1) >= 0
-    p = torch.arange(plan.m_max, dtype=torch.int32, device="cuda") \
-        .expand(Sx, -1).reshape(-1)
-    slot[plan.dst.reshape(-1)[on].long()] = p[on]
-    rows = plan.rows.transpose(1, 2).contiguous()
+    pay = A.payload
     stream = torch.cuda.current_stream().cuda_stream
 
     def ell(x):
         fn = lib.ell_spmv_f64 if x.dtype == torch.float64 \
             else lib.ell_spmv_f32
         y = torch.empty_like(x)
-        err = fn(A.values.data_ptr(), A.cols.data_ptr(), x.data_ptr(),
-                 y.data_ptr(), Sx, n, w, x.shape[2], stream)
+        err = fn(A.values.data_ptr(), pay.cols.data_ptr(),
+                 int(pay.cols.dtype == torch.uint16), pay.counts.data_ptr(),
+                 x.data_ptr(), y.data_ptr(), Sx, n, w, x.shape[2], stream)
         assert err == 0, f"parent ell_spmv launch: cudaError {err}"
         return y
 
@@ -89,9 +86,9 @@ def parent_calls(lib, A, plan):
         fn = lib.pexchange_f64 if x.dtype == torch.float64 \
             else lib.pexchange_f32
         y = torch.empty_like(x)
-        err = fn(x.data_ptr(), y.data_ptr(), slot.data_ptr(),
-                 rows.data_ptr(), Sx, n, plan.m_max, plan.k_max, x.shape[2],
-                 stream)
+        err = fn(x.data_ptr(), y.data_ptr(), plan.interior.data_ptr(),
+                 plan.dst.data_ptr(), plan.rows.data_ptr(), Sx, n,
+                 plan.m_max, plan.k_max, x.shape[2], stream)
         assert err == 0, f"parent pexchange launch: cudaError {err}"
         return y
 

@@ -9,7 +9,9 @@
 
 -N picks the number of subdomains, batched on one device: the card unless
 -device cpu is given (without a CUDA device, -device cuda raises). Vectors
-are f64 on both. Exits non-zero unless the reference's oracles hold
+are f64 on both. ``-hpddm_local_solver banded`` factors the local matrices
+as banded through RCM (the generator sets no grid geometry, as in the JAX
+driver), and GenEO then runs shift-invert Lanczos. Exits non-zero unless the reference's oracles hold
 (iterations <= 45, 60 for bfbcg, independently recomputed residual <= 1e-2,
 examples/schwarz.cpp:140-143).
 """

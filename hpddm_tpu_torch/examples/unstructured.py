@@ -10,8 +10,10 @@ A jittered Delaunay FEM Laplacian (optionally graded, with a
 high-coefficient channel), partitioned algebraically (k-way graph
 partition, or coordinate boxes above 200,000 mesh points), with
 RCM-ordered local numbering, ELL local matrices and two-level GenEO-RAS on
-the FEM Neumann matrices. Runs on the card unless -device cpu is given
-(without a CUDA device, -device cuda raises). Vectors are f64 on both
+the FEM Neumann matrices (``-hpddm_local_solver banded``: RCM banded
+exact local solves, and Lanczos GenEO). Runs on the card unless -device
+cpu is given (without a CUDA device, -device cuda raises). Vectors are
+f64 on both
 (the card runs f64 natively; the JAX driver drops to f32 only on the TPU,
 which has no f64). Exits 0 when GMRES converges within 60 iterations and
 the true residual on the assembled global system is at most 1e-6, the

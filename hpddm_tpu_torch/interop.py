@@ -17,7 +17,10 @@ Keys of ``arrays`` (numpy arrays unless stated):
   w), the JAX package's row-major layout; an ELL operator is stored
   slot-major with its kernel payload and gets the one-pass exchange plan,
   as ``Schwarz`` gives them;
-* local solver (``inv``): ``factor`` (S, n_max, n_max);
+* local solver: ``inv`` as ``factor`` (S, n_max, n_max), or banded as
+  ``Dinv``, ``cl``, ``cu``, ``idx_fwd``, ``msk_fwd``, ``idx_inv``,
+  ``msk_inv`` (the JAX package's ``BandedSolver`` arrays) and ints
+  ``wy_max``, ``wx_max``, ``cw``;
 * coarse space (optional; absent for one level): ``Z``, ``E_inv``,
   ``nu_loc``; int ``nu_max``; str ``correction``;
 * ``variant`` (str) and ``bc`` (array or None).
@@ -34,6 +37,7 @@ import torch
 from hpddm_tpu_torch.core.formats import BatchedDIA, BatchedELL
 from hpddm_tpu_torch.device import DEFAULT, as_device
 from hpddm_tpu_torch.dtypes import as_torch_dtype
+from hpddm_tpu_torch.ops.banded_solve import BandedSolver
 from hpddm_tpu_torch.ops.local_solve import LocalSolver
 from hpddm_tpu_torch.parallel.decomposition import Decomposition
 from hpddm_tpu_torch.parallel.pexchange import build_plan
@@ -91,8 +95,17 @@ def state_from_numpy(arrays: Dict[str, Any], device=DEFAULT,
             Z=kept("Z"), E_inv=kept("E_inv"),
             nu_loc=t("nu_loc", torch.int32),
             nu_max=int(arrays["nu_max"]), correction=str(arrays["correction"]))
+    if arrays.get("Dinv") is not None:
+        solver = BandedSolver(
+            Dinv=kept("Dinv"), cl=kept("cl"), cu=kept("cu"),
+            idx_fwd=i("idx_fwd"), msk_fwd=kept("msk_fwd"),
+            idx_inv=i("idx_inv"), msk_inv=kept("msk_inv"),
+            wy_max=int(arrays["wy_max"]), wx_max=int(arrays["wx_max"]),
+            n_max=int(arrays["n_max"]), S=int(arrays["S"]),
+            cw=int(arrays["cw"]))
+    else:
+        solver = LocalSolver(kind="inv", factor=kept("factor"))
     bc = arrays.get("bc")
     return SchwarzState(
-        dec=dec, A=A, solver=LocalSolver(kind="inv", factor=kept("factor")),
-        coarse=coarse, variant=str(arrays["variant"]),
-        bc=None if bc is None else f("bc"))
+        dec=dec, A=A, solver=solver, coarse=coarse,
+        variant=str(arrays["variant"]), bc=None if bc is None else f("bc"))

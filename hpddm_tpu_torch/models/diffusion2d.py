@@ -1,7 +1,8 @@
 """2D diffusion test problem (counterpart of ``hpddm_tpu/models/diffusion2d.py``).
 
-``generate`` only, kept bit-faithful to the JAX package so that both
-packages see byte-equal problems: a 5-point finite-difference diffusion
+``generate`` and ``generate_uniform``, kept bit-faithful to the JAX
+package so that both packages see byte-equal problems: a 5-point
+finite-difference diffusion
 operator on an Nx x Ny grid of [0,10]^2, decomposed into an xGrid x yGrid
 process grid of overlapping subdomains with the reference's partition of
 unity, neighbor lists and elementwise-aligned mapping lists
@@ -254,5 +255,182 @@ def generate(size_world: int, Nx: int = 100, Ny: int = 100, overlap: int = 1,
             keep = (ncols_c >= 0) & (ncols_c < ndof)
             out.neumann.append(MatrixCSR.from_coo(
                 ndof, ndof, nrows_c[keep], ncols_c[keep], nvals_c[keep]))
+
+    return out
+
+
+def generate_uniform(size_world: int, Nx: int = 100, Ny: int = 100,
+                     overlap: int = 1, mu: int = 0,
+                     rng: Optional[np.random.Generator] = None,
+                     kappa=None, with_neumann: bool = False,
+                     dtype=np.float64) -> Generated:
+    """Uniform-box variant of :func:`generate`: the JAX package's problem
+    for its structured-grid halo exchange (``hpddm_tpu/parallel/grid.py``,
+    not ported yet) and for banded local solves on grid boxes.
+
+    Boxes at the domain edge are extended *inward* instead of clipped, so
+    every subdomain is exactly (w + 2*overlap) per side — uniform static
+    shapes, reshapeable to the (H, W) canvas the slab exchange needs.
+    Edge pairs then share 3*overlap cells instead of 2*overlap, which the
+    corner-loop POU of the reference cannot express; the partition of
+    unity here is the exact-GMV one (zero on the incomplete-stencil outer
+    layer, then the multiplicityScaling fixed point applied by
+    Decomposition.from_subdomains' "normalized" scaling). Same stencil,
+    RHS, and global operator as `generate`; the local vertical offset is
+    the true row width (no Nx//xGrid quirk — this decomposition is not
+    bit-matched to the reference).
+
+    kappa: optional ``kappa(xx, yy) -> array`` scalar diffusion coefficient
+    on [0,10]^2 (cell centers). Face coefficients are harmonic means, so
+    the operator is the standard heterogeneous 5-point FV stencil;
+    kappa=None reproduces the constant-coefficient operator exactly.
+
+    with_neumann: also assemble the local *Neumann* matrices for GenEO
+    (the PCHPDDMSetAuxiliaryMat requirement: the SPSD local energy —
+    faces crossing the artificial subdomain boundary contribute nothing
+    to the diagonal, faces on the true domain boundary keep their
+    Dirichlet contribution; cf. examples/generate.cpp:249-301)."""
+    x_grid, y_grid = _grid_of(size_world)
+    if Nx % x_grid or Ny % y_grid:
+        raise ValueError("generate_uniform needs Nx % xGrid == 0 and "
+                         "Ny % yGrid == 0")
+    wsub_x, wsub_y = Nx // x_grid, Ny // y_grid
+    Wb, Hb = wsub_x + 2 * overlap, wsub_y + 2 * overlap
+    if x_grid > 1 and wsub_x < 3 * overlap:
+        raise ValueError("subdomains too small for the inward extension")
+    dx, dy = 10.0 / Nx, 10.0 / Ny
+    idy2, idx2 = 1.0 / (dy * dy), 1.0 / (dx * dx)
+    if rng is None:
+        rng = np.random.default_rng(0)
+
+    out = Generated([], [] if with_neumann else None, [], [], [], [], [],
+                    (x_grid, y_grid, Nx, Ny, overlap), [])
+
+    def origin(c, w, n, width, grid_n):
+        if grid_n == 1:
+            return 0
+        return min(max(c * w - overlap, 0), n - width)
+
+    for rank in range(size_world):
+        y, x = divmod(rank, x_grid)
+        i_start = origin(x, wsub_x, Nx, Wb, x_grid)
+        j_start = origin(y, wsub_y, Ny, Hb, y_grid)
+        wx = Wb if x_grid > 1 else Nx
+        wy = Hb if y_grid > 1 else Ny
+        i_end, j_end = i_start + wx, j_start + wy
+        ndof = wx * wy
+        out.boxes.append((i_start, i_end, j_start, j_end))
+        out.n_loc.append(ndof)
+
+        if mu == 0:
+            jj, ii = np.meshgrid(np.arange(j_start, j_end),
+                                 np.arange(i_start, i_end), indexing="ij")
+            f = rhs_values(ii, jj, Nx, Ny).reshape(ndof, 1).astype(dtype)
+        else:
+            f = rng.uniform(0.0, 1.0, size=(ndof, mu)).astype(dtype)
+        out.f.append(f)
+
+        # POU seed: zero on the incomplete-stencil outer layer (box edges
+        # interior to the domain), one elsewhere; "normalized" scaling
+        # turns this into an exact partition of unity.
+        d = np.ones((wy, wx))
+        if j_start > 0:
+            d[0, :] = 0.0
+        if j_end < Ny:
+            d[-1, :] = 0.0
+        if i_start > 0:
+            d[:, 0] = 0.0
+        if i_end < Nx:
+            d[:, -1] = 0.0
+        out.d.append(d.ravel())
+
+        # neighbors + aligned mappings from global rectangle intersections
+        o, maps = [], []
+        for q in range(size_world):
+            if q == rank:
+                continue
+            qy, qx = divmod(q, x_grid)
+            if abs(qy - y) > 1 or abs(qx - x) > 1:
+                continue
+            qi0 = origin(qx, wsub_x, Nx, Wb, x_grid)
+            qj0 = origin(qy, wsub_y, Ny, Hb, y_grid)
+            a0, a1 = max(i_start, qi0), min(i_end, qi0 + wx)
+            b0, b1 = max(j_start, qj0), min(j_end, qj0 + wy)
+            if a1 <= a0 or b1 <= b0:
+                continue
+            gj, gi = np.meshgrid(np.arange(b0, b1), np.arange(a0, a1),
+                                 indexing="ij")
+            loc = ((gj - j_start) * wx + (gi - i_start)).ravel()
+            o.append(q)
+            maps.append(loc)
+        out.neighbors.append(o)
+        out.mappings.append(maps)
+
+        # local matrix: true 5-point stencil of the box (voff = wx)
+        jj, ii = np.meshgrid(np.arange(j_start, j_end),
+                             np.arange(i_start, i_end), indexing="ij")
+        jj, ii = jj.ravel(), ii.ravel()
+        k = np.arange(ndof)
+        rows, cols, vals = [], [], []
+
+        def add(mask, col, val):
+            rows.append(k[mask])
+            cols.append(col[mask])
+            vals.append(val[mask] if isinstance(val, np.ndarray)
+                        else np.full(int(mask.sum()), val))
+
+        if kappa is None:
+            kw = ks = ke = kn = np.ones(ndof)
+        else:
+            # harmonic-mean face coefficients from cell-center kappa; at
+            # the global boundary the face takes the cell's own value
+            def kc(i, j):
+                return np.asarray(kappa(dx * (np.clip(i, 0, Nx - 1) + 0.5),
+                                        dy * (np.clip(j, 0, Ny - 1) + 0.5)),
+                                  dtype=np.float64)
+            c = kc(ii, jj)
+            def face(other):
+                return 2.0 * c * other / (c + other)
+            kw = np.where(ii > 0, face(kc(ii - 1, jj)), c)
+            ke = np.where(ii < Nx - 1, face(kc(ii + 1, jj)), c)
+            ks = np.where(jj > 0, face(kc(ii, jj - 1)), c)
+            kn = np.where(jj < Ny - 1, face(kc(ii, jj + 1)), c)
+        diag_val = (kw + ke) * idx2 + (ks + kn) * idy2
+        add(jj > j_start, k - wx, -ks * idy2)
+        add(ii > i_start, k - 1, -kw * idx2)
+        add(np.ones(ndof, dtype=bool), k, diag_val)
+        add(ii < i_end - 1, k + 1, -ke * idx2)
+        add(jj < j_end - 1, k + wx, -kn * idy2)
+        mat = MatrixCSR.from_coo(ndof, ndof, np.concatenate(rows),
+                                 np.concatenate(cols),
+                                 np.concatenate(vals).astype(dtype))
+        out.mats.append(mat)
+
+        if with_neumann:
+            # SPSD local energy: a face contributes to the diagonal only
+            # when it is interior to the box or lies on the true domain
+            # boundary (Dirichlet); faces crossing the artificial boundary
+            # contribute nothing (free/Neumann)
+            dW = np.where((ii > i_start) | (ii == 0), kw, 0.0)
+            dE = np.where((ii < i_end - 1) | (ii == Nx - 1), ke, 0.0)
+            dS = np.where((jj > j_start) | (jj == 0), ks, 0.0)
+            dN = np.where((jj < j_end - 1) | (jj == Ny - 1), kn, 0.0)
+            diag_neu = (dW + dE) * idx2 + (dS + dN) * idy2
+            nrows, ncols, nvals = [], [], []
+
+            def addn(mask, col, val):
+                nrows.append(k[mask])
+                ncols.append(col[mask])
+                nvals.append(val[mask] if isinstance(val, np.ndarray)
+                             else np.full(int(mask.sum()), val))
+
+            addn(jj > j_start, k - wx, -ks * idy2)
+            addn(ii > i_start, k - 1, -kw * idx2)
+            addn(np.ones(ndof, dtype=bool), k, diag_neu)
+            addn(ii < i_end - 1, k + 1, -ke * idx2)
+            addn(jj < j_end - 1, k + wx, -kn * idy2)
+            out.neumann.append(MatrixCSR.from_coo(
+                ndof, ndof, np.concatenate(nrows), np.concatenate(ncols),
+                np.concatenate(nvals).astype(dtype)))
 
     return out

@@ -17,11 +17,14 @@ plain version ``ell_spmv_payload_reference`` (``ell_spmv_reference`` for a
 batch without a payload). A CUDA call without a payload, or with tensors
 the kernel does not take, raises; nothing falls back.
 
-Skipping a row's trailing padding slots (value 0, column 0) leaves every
-sum unchanged for finite x: each skipped product is +-0, and a sum that
-starts at +0 is never -0, so adding +-0 changes nothing. For a non-finite
-x[s, 0] the full sum (``ell_spmv_reference``) gives NaN where the payload's
-does not.
+A row whose count is below w skips its trailing padding slots (value 0,
+column 0) and adds one term in their place, 0 * x[s, 0, m], after its last
+stored slot. For finite x every skipped product and that term are +-0, and
+a sum that starts at +0 is never -0, so the result equals the full sum
+(``ell_spmv_reference``) bitwise; for a non-finite x[s, 0] both give NaN
+there, as the JAX package's ``spmm_ell`` does. Where mu is a multiple of
+32, the wrapper hands the kernel S bytes of scratch in which it first flags
+the subdomains whose x[s, 0, :] is not finite (``csrc/ell_spmv.cu``).
 """
 
 from __future__ import annotations
@@ -83,7 +86,8 @@ def ell_spmv_reference(vals: torch.Tensor, cols: torch.Tensor,
 def ell_spmv_payload_reference(vals: torch.Tensor, payload: EllPayload,
                                x: torch.Tensor) -> torch.Tensor:
     """Plain version of the kernel: each row's slots below its count
-    summed in storage order from zero."""
+    summed in storage order from zero, then, where the count is below w,
+    the padding's one term 0 * x[s, 0]."""
     return _slot_sum(vals, payload.cols, payload.counts, x)
 
 
@@ -97,6 +101,9 @@ def _slot_sum(vals, cols, counts, x):
         term = out + vals[:, j, :, None] * xj
         out = term if counts is None else \
             torch.where((counts > j)[:, :, None], term, out)
+    if counts is not None:
+        out = torch.where((counts < w)[:, :, None],
+                          out + vals.new_zeros(()) * x[:, :1, :], out)
     return out
 
 
@@ -158,9 +165,13 @@ def ell_spmv(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
     lib = _build.load()
     fn = lib.ell_spmv_f64 if x.dtype == torch.float64 else lib.ell_spmv_f32
     y = torch.empty_like(x)
+    # wide panels: scratch for the kernel's flags of non-finite x[s, 0, :]
+    x0_bad = torch.empty(S, dtype=torch.uint8, device=x.device) \
+        if counts is not None and mu > 1 and mu % 32 == 0 else None
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(vals.data_ptr(), payload.cols.data_ptr(), int(narrow),
-             None if counts is None else counts.data_ptr(), x.data_ptr(),
+             None if counts is None else counts.data_ptr(),
+             None if x0_bad is None else x0_bad.data_ptr(), x.data_ptr(),
              y.data_ptr(), S, n, w, mu, stream)
     if err != 0:
         raise RuntimeError(f"ell_spmv: kernel launch failed, cudaError {err}")

@@ -1,10 +1,13 @@
-"""GenEO spectral coarse spaces, dense part (counterpart of ``hpddm_tpu/precond/geneo.py``).
+"""GenEO spectral coarse spaces (counterpart of ``hpddm_tpu/precond/geneo.py``).
 
 * ``scale_into_overlap``: B = D A D restricted to the geometric overlap
   (``Schwarz::scaleIntoOverlap``, HPDDM_schwarz.hpp:622-657),
 * ``solve_gevp_dense``: the local pencil A_neu v = lambda B v, smallest
   lambdas, by two dense symmetric eigensolves on the device (the
   reference uses shift-invert ARPACK, HPDDM_ARPACK.hpp:84-151),
+* ``solve_gevp_lanczos``: the same pencil matrix-free, by shift-invert
+  Lanczos batched over the subdomains, for subdomains where two dense
+  eigensolves are too slow or too large,
 * ``select_nu``: threshold cut and ``geneo_force_uniformity``
   (``Eigensolver::selectNu``, HPDDM_eigensolver.hpp:106-159).
 
@@ -15,13 +18,15 @@ degenerate eigenspace do not matter.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import time
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from hpddm_tpu_torch.core.formats import batched_dense_from
-from hpddm_tpu_torch.dtypes import is_low_precision
+from hpddm_tpu_torch.device import DEFAULT, as_device, synchronize
+from hpddm_tpu_torch.dtypes import as_torch_dtype, is_low_precision
 from hpddm_tpu_torch.parallel.decomposition import Decomposition
 
 
@@ -81,6 +86,97 @@ def solve_gevp_dense(A_neu: torch.Tensor, B: torch.Tensor, nu_max: int,
         lam_out[s] = torch.where(mu_top > 1e3 * eps, 1.0 / mu_top,
                                  torch.full_like(mu_top, float("inf")))
     return lam_out.to(out_dtype), V_out.to(out_dtype)
+
+
+def solve_gevp_lanczos(apply_Ainv: Callable, apply_B: Callable, S: int,
+                       n: int, nu_max: int, ncv: Optional[int] = None,
+                       seed: int = 0, dtype=torch.float64, device=DEFAULT,
+                       timings: Optional[Dict[str, float]] = None):
+    """Shift-invert Lanczos for the pencil A v = lambda B v at sigma = 0,
+    batched over subdomains: the matrix-free analogue of the reference's
+    ARPACK mode-3 loop (HPDDM_ARPACK.hpp:84-151), and the port of the JAX
+    package's ``solve_gevp_lanczos`` (``hpddm_tpu/precond/geneo.py:123``).
+
+    apply_Ainv(x): (S, n, 1) -> A^-1 x (exact or inner-Krylov);
+    apply_B(x):    (S, n, 1) -> B x (the overlap-masked D A D).
+
+    B-orthonormal Lanczos with full reorthogonalization (twice a step,
+    against the stored B v columns) on the operator A^-1 B, ncv steps
+    (default max(2 nu_max + 1, 12), at most n) on preallocated (S, n, ncv)
+    bases; the largest Ritz values theta give the smallest pencil
+    eigenvalues lambda = 1/theta. The start is
+    ``np.random.default_rng(seed).normal(size=(S, n, 1))``, as in the JAX
+    package, purged once into range(A^-1 B). The projected matrix
+    T = V^T B A^-1 B V is built on ``device``, symmetrized, and solved per
+    subdomain by ``np.linalg.eigh`` on the host. No host read happens
+    inside the steps.
+
+    timings: when given, receives the seconds of the steps
+    ("lanczos_steps") and of the projected eigenproblem with the Ritz
+    vectors ("lanczos_eig"), each ending in a device synchronization.
+    Returns (lam (S, nu_max) ascending, V (S, n, nu_max)) in dtype.
+    """
+    device = as_device(device)
+    dtype = as_torch_dtype(dtype)
+    if ncv is None:
+        ncv = max(2 * nu_max + 1, 12)
+    ncv = min(ncv, n)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    v = torch.as_tensor(rng.normal(size=(S, n, 1)), device=device).to(dtype)
+
+    def b_norm(w):
+        return torch.sqrt(torch.abs(torch.sum(w * apply_B(w), dim=(1, 2))))
+
+    # purge the raw start into range(A^-1 B): the operators mask padded
+    # rows and kernel directions, so one application removes the noise the
+    # raw vector carries there, which full reorthogonalization would
+    # otherwise carry into every basis column
+    v = apply_Ainv(apply_B(v))
+    v = v / torch.clamp(b_norm(v), min=1e-30)[:, None, None]
+    V = torch.zeros((S, n, ncv), dtype=dtype, device=device)
+    BV = torch.zeros_like(V)
+    OpV = torch.zeros_like(V)
+    for j in range(ncv):
+        Bv = apply_B(v)
+        w = apply_Ainv(Bv)                                  # Op v_j
+        V[:, :, j] = v[:, :, 0]
+        BV[:, :, j] = Bv[:, :, 0]
+        OpV[:, :, j] = w[:, :, 0]
+        # full B-reorthogonalization (twice) against columns 0..j; the
+        # columns not yet filled are zero and contribute nothing
+        for _ in range(2):
+            c = torch.bmm(BV.transpose(1, 2), w)            # (S, ncv, 1)
+            w = w - torch.bmm(V, c)
+        v = w / torch.clamp(b_norm(w), min=1e-30)[:, None, None]
+    if timings is not None:
+        synchronize(device)
+        timings["lanczos_steps"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    # the projected problem T = V^T B Op V, symmetric in the B-inner
+    # product; built densely from the basis (full reorthogonalization makes
+    # the tridiagonal form fragile)
+    T = torch.bmm(BV.transpose(1, 2), OpV)
+    T = 0.5 * (T + T.transpose(1, 2))
+    T_np = T.cpu().numpy()
+    lam_out = np.full((S, nu_max), np.inf)
+    Y_out = np.zeros((S, ncv, nu_max))
+    for s in range(S):
+        w_s, y_s = np.linalg.eigh(T_np[s])
+        order = np.argsort(-w_s)[:nu_max]
+        theta = w_s[order]
+        good = theta > 1e-12
+        lam_out[s, : len(order)] = np.where(good, 1.0 / np.where(
+            good, theta, 1.0), np.inf)
+        Y_out[s, :, : len(order)] = y_s[:, order]
+    Vec = torch.bmm(V, torch.as_tensor(Y_out, device=device).to(dtype))
+    nrm = torch.linalg.norm(Vec, dim=1, keepdim=True)
+    Vec = Vec / torch.where(nrm > 0, nrm, torch.ones_like(nrm))
+    if timings is not None:
+        synchronize(device)
+        timings["lanczos_eig"] = time.perf_counter() - t0
+    return torch.as_tensor(lam_out, device=device).to(dtype), Vec
 
 
 def select_nu(eigenvalues: np.ndarray, nu_req: np.ndarray,

@@ -16,11 +16,13 @@ runtime methods are plain functions over it:
   (HPDDM_schwarz.hpp:761-803).
 
 ``Schwarz`` is the setup: decomposition, DIA or ELL packing (with the
-one-pass exchange plan for ELL operators), GenEO (dense pencil), ``inv`` local factors and the dense
-Galerkin coarse operator. It puts everything on the card unless the
-caller passes ``device="cpu"``. The other setup branches of the JAX
-package (block-sparse and multilevel coarse operators, banded/FFT/
-Chebyshev local solvers, Lanczos GenEO, the grid canvas, the
+one-pass exchange plan for ELL operators), GenEO (the dense pencil, or
+shift-invert Lanczos with banded or ``inv``-preconditioned inner solves),
+``inv`` or banded (block-tridiagonal, on grid boxes or through RCM) local
+factors and the dense Galerkin coarse operator. It puts everything on the
+card unless the caller passes ``device="cpu"``. The other setup branches
+of the JAX package (block-sparse and multilevel coarse operators, FFT and
+Chebyshev local solvers, the grid exchange and canvas, the
 interface-first layout) raise ``NotImplementedError`` naming their slice
 in ROADMAP.md.
 """
@@ -29,7 +31,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import scipy.sparse as sp
@@ -38,8 +40,11 @@ import torch
 from hpddm_tpu_torch.core.csr import MatrixCSR
 from hpddm_tpu_torch.core.formats import (BatchedELL, batched_dense_from,
                                           pack_local_matrices)
-from hpddm_tpu_torch.device import DEFAULT, as_device
+from hpddm_tpu_torch.device import DEFAULT, as_device, synchronize
 from hpddm_tpu_torch.dtypes import HPDDM_EPS, HPDDM_PEN, as_torch_dtype
+from hpddm_tpu_torch.ops.banded_solve import (BandedSolver,
+                                              build_banded_solver,
+                                              build_banded_solver_rcm)
 from hpddm_tpu_torch.ops.local_solve import LocalSolver, invert, promoted
 from hpddm_tpu_torch.ops.spmv import spmm
 from hpddm_tpu_torch.options import Options
@@ -74,7 +79,7 @@ class CoarseState:
 class SchwarzState:
     dec: Decomposition
     A: object                     # batched local matrices (DIA/ELL/Dense)
-    solver: LocalSolver
+    solver: Union[LocalSolver, BandedSolver]
     coarse: Optional[CoarseState]
     variant: str                  # 'ras' | 'asm' | 'oras' | 'soras' | 'osm' | 'none'
     # Dirichlet boundary-condition values per row (Subdomain::boundaryCond,
@@ -200,11 +205,6 @@ def compute_residual(state: SchwarzState, x: torch.Tensor, f: torch.Tensor,
 # Setup
 # ----------------------------------------------------------------------
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 class Schwarz:
     """Setup: packs matrices, solves GenEO, factorizes, assembles the
     coarse operator (examples/schwarz.cpp:90-127 of the reference:
@@ -212,8 +212,11 @@ class Schwarz:
     callNumfact).
 
     ``timings`` holds the wall seconds of each setup phase run so far
-    ("geneo", "factorize", "coarse"), each ending in a device
-    synchronization.
+    ("geneo", "factorize", "coarse"; with Lanczos GenEO also
+    "neumann_factor", "lanczos_steps" and "lanczos_eig", parts of
+    "geneo"), each ending in a device synchronization. With
+    ``local_solver=banded`` through RCM, ``rcm_bandwidths`` holds the
+    bandwidth of each subdomain's factor.
     """
 
     def __init__(self, mats: Sequence[MatrixCSR],
@@ -245,6 +248,9 @@ class Schwarz:
                                      device=self.device)
         self._try_pexchange_plan()
         self._deflation_vectors: Optional[List[np.ndarray]] = None
+        self._banded_shapes: Optional[List[tuple]] = None
+        self._grid_geometry: Optional[tuple] = None
+        self.rcm_bandwidths: Optional[List[int]] = None
         self.timings: Dict[str, float] = {}
 
     def _try_pexchange_plan(self) -> None:
@@ -258,7 +264,7 @@ class Schwarz:
                                            pexch=build_plan(self.dec))
 
     def _timed(self, phase: str, t0: float) -> None:
-        _sync(self.device)
+        synchronize(self.device)
         self.timings[phase] = time.perf_counter() - t0
 
     def _boundary_conditions(self) -> Optional[torch.Tensor]:
@@ -304,9 +310,13 @@ class Schwarz:
         -hpddm_geneo_force_uniformity max (default: seeded with 42, as the
         JAX package). ``neumann`` must be genuine SPSD local matrices.
 
+        method: "dense", "lanczos" or "auto", which takes Lanczos for
+        n_max > 6000 or a banded, FFT or Chebyshev local solver, as the
+        JAX package does (``hpddm_tpu/precond/schwarz.py:890-894``).
+
         The dense pencil runs one subdomain at a time, each Neumann matrix
         packed dense as the JAX package packs them, so the device holds a
-        few n_max^2 blocks, not S of them.
+        few n_max^2 blocks, not S of them. Lanczos: ``_solve_gevp_lanczos``.
         """
         from hpddm_tpu_torch.precond.geneo import (scale_into_overlap,
                                                    select_nu,
@@ -329,22 +339,23 @@ class Schwarz:
                                    opt.val("local_solver", prefix=pfx)
                                    in ("fft", "dst_cheby", "banded")) \
                 else "dense"
-        if method != "dense":
-            raise _not_ported(f"GenEO method {method!r} (n_max={self.n_max})",
-                              "ROADMAP queue A, slice 3")
-        lam_np = np.empty((S, nu_max_req))
-        V_np = np.empty((S, self.n_max, nu_max_req))
-        for s in range(S):
-            sub = slice(s, s + 1)
-            A_neu = pack_local_matrices([neumann[s]], n_max=self.n_max,
-                                        fmt="dense", pad_identity=True,
-                                        device=self.device).values
-            lam, V = solve_gevp_dense(A_neu,
-                                      scale_into_overlap(self.A, self.dec,
-                                                         sub),
-                                      nu_max_req)
-            lam_np[s] = lam[0].cpu().numpy()
-            V_np[s] = V[0].cpu().numpy()
+        if method == "lanczos":
+            lam, V = self._solve_gevp_lanczos(neumann, nu_max_req)
+            lam_np, V_np = lam.cpu().numpy(), V.cpu().numpy()
+        else:
+            lam_np = np.empty((S, nu_max_req))
+            V_np = np.empty((S, self.n_max, nu_max_req))
+            for s in range(S):
+                sub = slice(s, s + 1)
+                A_neu = pack_local_matrices([neumann[s]], n_max=self.n_max,
+                                            fmt="dense", pad_identity=True,
+                                            device=self.device).values
+                lam, V = solve_gevp_dense(A_neu,
+                                          scale_into_overlap(self.A,
+                                                             self.dec, sub),
+                                          nu_max_req)
+                lam_np[s] = lam[0].cpu().numpy()
+                V_np[s] = V[0].cpu().numpy()
         nu_loc, V_np = select_nu(
             lam_np, nu_req,
             threshold=float(threshold) if threshold is not None else None,
@@ -358,6 +369,110 @@ class Schwarz:
         self.opt["geneo_nu"] = int(nu_loc.max(initial=1))
         self._timed("geneo", t0)
         return nu_loc
+
+    def _solve_gevp_lanczos(self, neumann: Sequence[MatrixCSR],
+                            nu_max_req: int):
+        """Matrix-free GenEO: shift-invert Lanczos on A_neu^-1 B
+        (``geneo.solve_gevp_lanczos``; the JAX package's
+        ``_solve_gevp_lanczos``, ``hpddm_tpu/precond/schwarz.py:937``), B
+        applied as the overlap-masked D A D through the operator's SpMV.
+        The inner solve of the (diagonally regularized) Neumann matrix:
+
+        * ``local_solver=banded``: a host-f64 banded factor of
+          A_neu + eps_reg I (grid boxes, else RCM), eps_reg = 1e-8 times
+          the mean |diagonal|, applied once with one refinement step. The
+          factor stays on the host path: the pencil is nearly singular, and
+          a lower-precision recursion moves exactly the near-null
+          eigenvalues GenEO needs (``hpddm_tpu/precond/schwarz.py:1022-1030``);
+        * otherwise: 25 steps of CG preconditioned by the dense inverse of
+          the assembled matrix, inverted one subdomain at a time as
+          ``build`` inverts.
+
+        The FFT and Chebyshev inner solves raise (slice 5d). Returns
+        (lam (S, nu_max), V (S, n_max, nu_max)) on the device; the phases
+        go to ``timings``.
+        """
+        from hpddm_tpu_torch.precond.geneo import solve_gevp_lanczos
+
+        opt = self.opt
+        dec = self.dec
+        kind = opt.val("local_solver", prefix=self.prefix)
+        if kind in ("fft", "dst_cheby", "cheby"):
+            raise _not_ported(f"Lanczos GenEO with the {kind!r} inner solve",
+                              "ROADMAP queue A, slice 5d")
+        t0 = time.perf_counter()
+        A_neu = pack_local_matrices(neumann, n_max=self.n_max, fmt="auto",
+                                    pad_identity=True, device=self.device)
+        mask = (dec.ov_mask.to(dec.d.dtype) * dec.d)[:, :, None]
+
+        def apply_B(x):
+            return mask * spmm(self.A, mask * x)
+
+        # diagonal regularization of the (possibly singular) Neumann matrix
+        eps_reg = 1e-8 * float(np.mean([np.abs(m.scipy().diagonal()).mean()
+                                        for m in neumann]))
+
+        def apply_Aneu(x):
+            return spmm(A_neu, x) + eps_reg * x
+
+        rows = int(opt.val("banded_block_rows"))
+        if kind == "banded":
+            regs = [sp.csr_matrix(m.scipy(expand=True).astype(np.float64)
+                                  + eps_reg * sp.identity(m.n))
+                    for m in neumann]
+            boxes = self._banded_boxes(required=False)
+            if boxes is None:
+                Knb, _ = build_banded_solver_rcm(
+                    regs, self.n_max, dtype=dec.d.dtype, rows_per_block=rows,
+                    method="host", device=self.device)
+            else:
+                Knb = build_banded_solver(
+                    regs, [(0, i1 - i0, 0, j1 - j0)
+                           for (i0, i1, j0, j1) in boxes],
+                    self.n_max, dtype=dec.d.dtype, rows_per_block=rows,
+                    method="host", device=self.device)
+
+            def apply_Ainv(r):
+                x = Knb.solve(r)
+                return x + Knb.solve(r - apply_Aneu(x))
+        else:
+            factor = torch.empty((dec.S, self.n_max, self.n_max),
+                                 dtype=self.A.values.dtype,
+                                 device=self.device)
+            for s in range(dec.S):
+                factor[s] = invert(batched_dense_from(self.A,
+                                                      slice(s, s + 1))[0])
+            prec = LocalSolver(kind="inv", factor=factor)
+
+            def apply_Ainv(r):
+                # 25 steps of preconditioned CG, batched over subdomains
+                def dot(a, b):
+                    return torch.sum(a * b, dim=(1, 2))
+
+                def safe(v):
+                    return torch.where(torch.abs(v) > 0, v,
+                                       torch.ones_like(v))[:, None, None]
+                x = torch.zeros_like(r)
+                res = r
+                z = prec.solve(res)
+                p = z
+                rz = dot(res, z)
+                for _ in range(25):
+                    Ap = apply_Aneu(p)
+                    alpha = rz[:, None, None] / safe(dot(p, Ap))
+                    x = x + alpha * p
+                    res = res - alpha * Ap
+                    z = prec.solve(res)
+                    rz_new = dot(res, z)
+                    p = z + (rz_new[:, None, None] / safe(rz)) * p
+                    rz = rz_new
+                return x
+        self._timed("neumann_factor", t0)
+        ncv = opt.val("lanczos_ncv")
+        return solve_gevp_lanczos(
+            apply_Ainv, apply_B, dec.S, self.n_max, nu_max_req,
+            ncv=int(ncv) if ncv else None, dtype=dec.d.dtype,
+            device=self.device, timings=self.timings)
 
     def build(self, dtype=None) -> SchwarzState:
         """Factorize the local solvers and the coarse operator and return
@@ -378,17 +493,20 @@ class Schwarz:
         dt = self.A.values.dtype if dtype is None else as_torch_dtype(dtype)
         t0 = time.perf_counter()
         kind = opt.val("local_solver", prefix=pfx)
-        if kind != "inv":
+        if kind == "banded":
+            solver = self._build_banded(dt)
+        elif kind == "inv":
+            # one subdomain at a time: the dense copy of A_s lives only
+            # while its inverse is computed
+            factor = torch.empty((self.dec.S, self.n_max, self.n_max),
+                                 dtype=dt, device=self.device)
+            for s in range(self.dec.S):
+                factor[s] = invert(batched_dense_from(
+                    self.A, slice(s, s + 1))[0].to(dt))
+            solver = LocalSolver(kind="inv", factor=factor)
+        else:
             raise _not_ported(f"local_solver={kind!r}",
-                              "ROADMAP queue A, slices 3 and 5")
-        # one subdomain at a time: the dense copy of A_s lives only while
-        # its inverse is computed
-        factor = torch.empty((self.dec.S, self.n_max, self.n_max), dtype=dt,
-                             device=self.device)
-        for s in range(self.dec.S):
-            factor[s] = invert(batched_dense_from(self.A,
-                                                  slice(s, s + 1))[0].to(dt))
-        solver = LocalSolver(kind="inv", factor=factor)
+                              "ROADMAP queue A, slice 5")
         self._timed("factorize", t0)
 
         t0 = time.perf_counter()
@@ -402,9 +520,59 @@ class Schwarz:
                             coarse=coarse, variant=variant,
                             bc=self._boundary_conditions())
 
+    def _build_banded(self, dtype) -> BandedSolver:
+        """Exact block-tridiagonal local factors (ops/banded_solve.py):
+        on the boxes of ``set_banded_shapes`` or ``set_grid_geometry``, else
+        through RCM (``build_banded_solver_rcm``), ``banded_block_rows``
+        grid rows per block, the factor method chosen by
+        ``build_banded_solver``'s "auto" rule. The JAX package refuses grid
+        boxes on its interface-first layout; the port has no such layout
+        (``renumber=True`` raises), so that check has nothing to test."""
+        rows = int(self.opt.val("banded_block_rows", prefix=self.prefix))
+        boxes = self._banded_boxes(required=False)
+        if boxes is None:
+            solver, self.rcm_bandwidths = build_banded_solver_rcm(
+                self.mats, self.n_max, dtype=dtype, rows_per_block=rows,
+                device=self.device)
+            return solver
+        return build_banded_solver(self.mats, boxes, self.n_max, dtype=dtype,
+                                   rows_per_block=rows, device=self.device)
+
     def exchange_rhs(self, f: torch.Tensor) -> torch.Tensor:
         """Make a (possibly inconsistent) RHS consistent."""
         return scaled_exchange(self.dec, f)
+
+    def set_banded_shapes(self, shapes) -> None:
+        """Declare the block-tridiagonal structure of the local matrices
+        for ``local_solver=banded`` where no 2D grid geometry applies:
+        ``shapes[s] = (rows, cols)`` with local index = row*cols + col and
+        diagonal coupling between rows (for 3D boxes in plane-major order,
+        rows = wz and cols = wx*wy)."""
+        self._banded_shapes = [(int(r), int(c)) for (r, c) in shapes]
+
+    def _banded_boxes(self, required: bool = True):
+        """(0, cols, 0, rows) boxes from ``set_banded_shapes``, else the
+        grid geometry's boxes; None (when not ``required``) selects RCM."""
+        if self._banded_shapes is not None:
+            return [(0, c, 0, r) for (r, c) in self._banded_shapes]
+        if self._grid_geometry is None:
+            if required:
+                raise ValueError("local_solver=banded requires "
+                                 "set_grid_geometry(boxes, Nx, Ny) or "
+                                 "set_banded_shapes(shapes)")
+            return None
+        return self._grid_geometry[0]
+
+    def set_grid_geometry(self, boxes, Nx: int, Ny: int) -> None:
+        """Attach the generator's subdomain boxes (i0, i1, j0, j1) on an
+        Nx x Ny grid: banded local solves then factor on the boxes instead
+        of through RCM. Only the geometry is stored: the JAX package also
+        switches the exchange to its grid plan and the SpMV to its canvas
+        form here (``hpddm_tpu/precond/schwarz.py:1290-1298``), which are
+        slice 3b. The general exchange stays; the JAX package holds its two
+        exchanges within 1e-13 of each other
+        (``tests/test_grid_exchange.py:37-45``)."""
+        self._grid_geometry = (list(boxes), int(Nx), int(Ny))
 
     def _build_coarse(self, correction: str, dtype) -> CoarseState:
         """Assemble E = Z^T A Z and invert it (replicated coarse solve).

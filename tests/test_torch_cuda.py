@@ -1,6 +1,8 @@
 """The CUDA kernels on the card (skipped without a CUDA GPU): DIA SpMV (B1),
-DIA SpMM in both panel layouts (B2/B3), ELL SpMM (B4, with its payload)
-and the one-pass exchange (B5), at mu 1, 3, 4, 33 and 640.
+DIA SpMM in both panel layouts (B2/B3), ELL SpMM (B4, with its payload;
+also with a non-finite x[s, 0]) and the one-pass exchange (B5), at mu 1,
+3, 4, 33 and 640; and the banded local solve and Lanczos GenEO on the card
+(against the CPU, and with no plain-version call).
 
 This file imports no JAX, so it also runs on a machine without it:
 
@@ -21,6 +23,7 @@ import torch
 from hpddm_tpu_torch.core.formats import (BatchedDIA, BatchedELL,
                                           pack_local_matrices)
 from hpddm_tpu_torch.models import diffusion2d, unstructured
+from hpddm_tpu_torch.ops import banded_solve as bs
 from hpddm_tpu_torch.ops import dia_spmv as kmod
 from hpddm_tpu_torch.ops import ell_spmv as ek
 from hpddm_tpu_torch.parallel import pexchange as pk
@@ -402,3 +405,109 @@ def test_unstructured_gmv_through_kernels_matches_plain(unstr):
     plain = scaled_exchange(dataclasses.replace(state.dec, pexch=None),
                             spmm_ell(state.A, x))
     assert torch.equal(y, plain)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mu", [1, 3, 4, 32, 33, 640])
+@pytest.mark.parametrize("value", [np.inf, np.nan], ids=["inf", "nan"])
+def test_ell_kernel_non_finite_x0(cuda, value, mu, dtype):
+    """A row with trailing padding adds 0 * x[s, 0]: with a non-finite
+    x[s, 0] the kernel has NaN where its plain version has it (and the full
+    slot sum), and the same bits everywhere else; at mu=1 after the passes,
+    at mu = 3, 4, 33 through the first padding slot, at mu = 32 and 640
+    through the flags of the subdomains (one subdomain left finite)."""
+    rng = np.random.default_rng(7 + mu)
+    vals, cols = _ragged_ell(rng, 3, 7, 1000)
+    A = BatchedELL.from_slot_major(
+        torch.as_tensor(vals, device=cuda),
+        torch.as_tensor(cols, device=cuda, dtype=torch.int32), 1000) \
+        .astype(dtype)
+    x = torch.as_tensor(rng.normal(size=(3, 1000, mu)), device=cuda).to(dtype)
+    x[:2, 0] = value
+    y = ek.ell_spmv(A.values, A.cols, x, A.payload)
+    ref = ek.ell_spmv_payload_reference(A.values, A.payload, x)
+    nan = torch.isnan(ref)
+    assert nan.any() and torch.equal(torch.isnan(y), nan)
+    assert torch.equal(torch.isnan(ek.ell_spmv_reference(A.values, A.cols,
+                                                         x)), nan)
+    assert torch.equal(y[~nan], ref[~nan])
+
+
+def _banded_grid(device):
+    gen = diffusion2d.generate_uniform(4, 48, 48, overlap=2,
+                                       with_neumann=True)
+    return gen, bs.build_banded_solver(gen.mats, gen.boxes, max(gen.n_loc),
+                                       dtype=torch.float64, device=device)
+
+
+@pytest.mark.parametrize("mu", [1, 4])
+def test_banded_solve_on_card_matches_cpu(cuda, mu):
+    """The sweeps on the card (cuBLAS batched products) against the same
+    solve on the CPU, f64."""
+    gen, card = _banded_grid(cuda)
+    _, cpu = _banded_grid("cpu")
+    assert torch.equal(card.Dinv.cpu(), cpu.Dinv)        # host factors
+    b = np.random.default_rng(mu).normal(size=(4, max(gen.n_loc), mu))
+    x = card.solve(torch.as_tensor(b, device=cuda)).cpu().numpy()
+    want = cpu.solve(torch.as_tensor(b)).numpy()
+    np.testing.assert_allclose(x, want, rtol=1e-12,
+                               atol=1e-12 * np.abs(want).max())
+
+
+def _count_plain_on_cuda(monkeypatch):
+    """Count calls of the kernels' plain versions on CUDA tensors."""
+    from hpddm_tpu_torch.ops import spmv
+
+    calls = [0]
+
+    def counted(plain):
+        def call(*args):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                calls[0] += 1
+            return plain(*args)
+        return call
+    for mods, name in (((kmod, spmv), "dia_spmv_reference"),
+                       ((ek, spmv), "ell_spmv_reference"),
+                       ((ek,), "ell_spmv_payload_reference"),
+                       ((pk,), "pexchange_reference")):
+        wrapped = counted(getattr(mods[0], name))
+        for mod in mods:
+            monkeypatch.setattr(mod, name, wrapped)
+    return calls
+
+
+@pytest.mark.parametrize("model", ["grid", "unstructured"])
+def test_banded_lanczos_path_never_runs_plain(cuda, monkeypatch, model):
+    """Banded local solves and Lanczos GenEO on the card: the grid path on
+    its boxes (B1), the unstructured one through RCM (B4, B5); no plain
+    version runs, and the solve converges."""
+    from hpddm_tpu_torch.options import Options
+    from hpddm_tpu_torch.solvers.krylov import solve
+
+    calls = _count_plain_on_cuda(monkeypatch)
+    if model == "grid":
+        gen = diffusion2d.generate_uniform(4, 48, 48, overlap=1,
+                                           with_neumann=True)
+    else:
+        gen = unstructured.generate(4, 30, 30, overlap=2, with_neumann=True)
+    opt = Options(local_solver="banded", schwarz_coarse_correction="deflated",
+                  geneo_nu=6, tol=1e-8)
+    sch = Schwarz(gen.mats, gen.neighbors, gen.mappings, d=gen.d,
+                  options=opt, device=cuda)
+    if model == "grid":
+        sch.set_grid_geometry(gen.boxes, 48, 48)
+    before = (kmod.launches, ek.launches, pk.launches)
+    sch.solve_gevp(gen.neumann)
+    state = sch.build()
+    assert isinstance(state.solver, bs.BandedSolver)
+    assert (sch.rcm_bandwidths is None) == (model == "grid")
+    f = np.zeros((4, sch.n_max, 1))
+    for s in range(4):
+        f[s, : gen.n_loc[s]] = gen.f[s]
+    res = solve(state, torch.as_tensor(f, device=cuda), opt=opt)
+    assert bool(res.converged.all())
+    after = (kmod.launches, ek.launches, pk.launches)
+    grew = [a > b for a, b in zip(after, before)]
+    assert grew == ([True, False, False] if model == "grid"
+                    else [False, True, True])
+    assert calls[0] == 0

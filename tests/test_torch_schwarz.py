@@ -33,8 +33,8 @@ CORRECTIONS = ["deflated", "additive", "balanced"]
 
 
 def jax_state_arrays(state):
-    """Flatten a hpddm_tpu SchwarzState (DIA or ELL, inv, dense direct
-    coarse) to the numpy dict of interop.state_from_numpy."""
+    """Flatten a hpddm_tpu SchwarzState (DIA or ELL, inv or banded, dense
+    direct coarse) to the numpy dict of interop.state_from_numpy."""
     dec = state.dec
     out = {k: np.asarray(getattr(dec, k)) for k in (
         "n_loc", "d", "if_idx", "if_gid", "if_mask", "ov_mask", "mult",
@@ -46,7 +46,14 @@ def jax_state_arrays(state):
         out["A_cols"] = np.asarray(state.A.cols)
     else:
         out["A_offsets"] = state.A.offsets
-    out["factor"] = np.asarray(state.solver.factor)
+    solver = state.solver
+    if hasattr(solver, "Dinv"):                          # BandedSolver
+        out.update({k: np.asarray(getattr(solver, k)) for k in (
+            "Dinv", "cl", "cu", "idx_fwd", "msk_fwd", "idx_inv", "msk_inv")})
+        out.update(wy_max=solver.wy_max, wx_max=solver.wx_max,
+                   cw=solver.cw)
+    else:
+        out["factor"] = np.asarray(solver.factor)
     out["variant"] = state.variant
     out["bc"] = None if state.bc is None else np.asarray(state.bc)
     co = state.coarse
@@ -200,8 +207,9 @@ def test_unported_branches_raise(port_setup):
                                          coarse_assembly="bsr"),
                          device="cpu")
         sch.build()
-    with pytest.raises(NotImplementedError, match="lanczos"):
+    with pytest.raises(NotImplementedError, match="cheby.*5d"):
         sz.Schwarz(gen.mats, gen.neighbors, gen.mappings, d=gen.d,
+                   options=Options(local_solver="cheby"),
                    device="cpu").solve_gevp(gen.neumann, method="lanczos")
 
 

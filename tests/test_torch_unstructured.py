@@ -348,12 +348,13 @@ def test_entry_points_default_to_cuda(gens, monkeypatch, entry):
     ("renumber", lambda g: sz.Schwarz(g.mats, g.neighbors, g.mappings,
                                       d=g.d, renumber=True, device="cpu"),
      "renumber"),
-    ("banded", lambda g: sz.Schwarz(
+    ("fft", lambda g: sz.Schwarz(
         g.mats, g.neighbors, g.mappings, d=g.d, device="cpu",
-        options=Options(local_solver="banded")).build(), "banded"),
-    ("lanczos", lambda g: sz.Schwarz(
-        g.mats, g.neighbors, g.mappings, d=g.d,
-        device="cpu").solve_gevp(g.neumann, method="lanczos"), "lanczos"),
+        options=Options(local_solver="fft")).build(), "fft"),
+    ("lanczos cheby", lambda g: sz.Schwarz(
+        g.mats, g.neighbors, g.mappings, d=g.d, device="cpu",
+        options=Options(local_solver="cheby")).solve_gevp(
+            g.neumann, method="lanczos"), "cheby.*5d"),
     ("spsd_neumann", lambda g: fromfile.spsd_neumann(g), "spsd_neumann"),
 ])
 def test_out_of_scope_branches_raise(gens, what, call, match):
