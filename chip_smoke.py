@@ -59,7 +59,8 @@ Phases (any failure exits non-zero before the last line is printed):
    torch.sparse.mm, one gmv at mu=4 and the time of bgmres's block least
    squares;
 12. banded grid card cell (generate_uniform 512x512, S=64, overlap 1,
-   n_max 4356, nu=10, f64, tol 1e-6): (a) banded local solves with Lanczos
+   n_max 4356, nu=10, f64, tol 1e-6; ``set_grid_geometry``: the slab
+   exchange and the canvas operator): (a) banded local solves with Lanczos
    GenEO (the JAX package's count ``BANDED_GRID_ITS``; setup phases, solve
    time, peak memory, B1 launches in GenEO and in the solve, plain-version
    calls 0), then Lanczos at ``BANDED_NCV`` steps; (b) dense GenEO once,
@@ -75,15 +76,34 @@ Phases (any failure exits non-zero before the last line is printed):
    (b) banded with Lanczos GenEO (within 2 of it), both with phase 8's
    true-residual gate; bandwidths, factor bytes, local solve and
    iteration times, GenEO against phase 8's, peak memory, B4/B5 launches
-   and plain-version calls (must be 0).
+   and plain-version calls (must be 0);
+14. GMV cells (examples/bench_gmv.py), f64, on the slab exchange and the
+   canvas operator: bench.py's 2048x2048/16 and the banded grid cell's
+   512x512/64: a chain of gmv calls (the path; B1 launches, plain-version
+   calls 0), its time, nonzeros per second, share of the bound and
+   device operations, the SpMM and three exchanges back to back (slab,
+   plain general, B5), B1 and B2 (mu=4, 8) against the plain canvas form
+   (bitwise), the slab exchange within 1e-13 of the general one;
+15. flagship512 (examples/flagship.py: generate_uniform(16, 512, 512),
+   contrast-1e4 channel, Jacobi-scaled, banded, Lanczos GenEO nu=8,
+   block-sparse coarse assembly, deflated): f32 solved at tol 1e-6 then
+   refined on the host to 1e-10 (and by double-word refinement on the
+   device), f64 solved at tol 1e-8 alone; each must reach a true
+   relative residual <= 1e-8, f64 in the JAX package's CPU count
+   (``FLAGSHIP_ITS``), f32 within one of its f32 count with its GenEO
+   run op by op; setup phases, solve, refine, time to true 1e-8 and peak
+   memory; B1/B2 launches (B2 in the bsr assembly, mu=8), plain-version
+   calls 0, B1 and B2 at mu=8 against the plain canvas form (bitwise).
 
 Phase 5 drives the DIA path, phase 8 the unstructured path, phase 11 the
-multi-RHS path, phase 12 the banded grid path and phase 13 the banded
-unstructured path, each with its kernels' launch counts set to 0 just
-before it and read just after; comparisons and timings come after the
-counts are read. Each phase's wall seconds are printed. The script prints one JSON line with the kernels'
-results (time, plain time, bound, library time, launches, error), the
-card's name and power limit as nvidia-smi reports them, and last
+multi-RHS path, phase 12 the banded grid path, phase 13 the banded
+unstructured path, phase 14 the grid gmv and phase 15 the flagship,
+each with its kernels' launch counts set to 0 just before it and read
+just after; comparisons and timings come after the counts are read.
+Each phase's wall seconds are printed. The script prints one JSON line
+with the kernels' results (time, plain time, bound, library time,
+launches, error), the card's name and power limit as nvidia-smi reports
+them, and last
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -993,6 +1013,7 @@ def count_plain_calls():
         return call
 
     for mods, name in (((kmod, spmv), "dia_spmv_reference"),
+                       ((spmv,), "spmm_dia_canvas"),
                        ((ek, spmv), "ell_spmv_reference"),
                        ((ek,), "ell_spmv_payload_reference"),
                        ((pk,), "pexchange_reference")):
@@ -1487,6 +1508,173 @@ def phase_banded_unstructured(cell, unstr_recs):
                           launches[1])]
 
 
+def canvas_checks(A, rng, mus):
+    """B1 (mu=1) and B2 (mu>1) on a canvas-annotated operator against the
+    plain canvas form (``spmm_dia_canvas``), with ``torch.equal``: the
+    flat kernels read a stored zero where the canvas form reads its zero
+    halo, so the sums are the same. Returns the largest difference."""
+    import torch
+    from hpddm_tpu_torch.ops.spmv import spmm, spmm_dia_canvas
+
+    check(A.canvas_hw is not None, "the operator carries no canvas")
+    S, _, n = A.values.shape
+    worst = 0.0
+    for mu in mus:
+        x = torch.as_tensor(rng.normal(size=(S, n, mu)),
+                            device="cuda").to(A.values.dtype)
+        y, ref = spmm(A, x), spmm_dia_canvas(A, x)
+        err = float((y - ref).abs().max())
+        same = torch.equal(y, ref)
+        print(f"  {'B1' if mu == 1 else 'B2'} on the canvas operator "
+              f"(S={S}, n={n}, canvas {A.canvas_hw}, mu={mu}, "
+              f"{dtype_name(A.values.dtype)}) vs spmm_dia_canvas: "
+              f"max|err| = {err:.3e}, bitwise equal: {same}")
+        check(same, f"kernel differs from the plain canvas form at mu={mu}")
+        worst = max(worst, err)
+    return worst
+
+
+def canvas_record(name, A, mu, launches, err):
+    """The record of B1 (mu=1) or B2 on a canvas operator: the kernel, the
+    plain canvas form and torch.sparse.mm on the card with the L2 flushed,
+    and the bound (values, x and y once)."""
+    import torch
+    from hpddm_tpu_torch.examples.library_ops import dia_csr
+    from hpddm_tpu_torch.ops import dia_spmv as kmod
+    from hpddm_tpu_torch.ops.spmv import spmm_dia_canvas
+    from hpddm_tpu_torch.timing import cold_events_ms
+
+    vals, offs = A.values, A.offsets
+    S, _, n = vals.shape
+    x = torch.ones((S, n, mu), dtype=vals.dtype, device="cuda")
+    if mu == 1:
+        xs = x[:, :, 0].contiguous()
+        k_ms = cold_events_ms(lambda: kmod.dia_spmv(vals, xs, offs))
+    else:
+        k_ms = cold_events_ms(lambda: kmod.dia_spmm(vals, x, offs))
+    p_ms = cold_events_ms(lambda: spmm_dia_canvas(A, x), reps=10)
+    nbytes = (vals.numel() + 2 * x.numel()) * vals.element_size()
+    b_ms, b_by = bound(nbytes, 2 * int(torch.count_nonzero(vals)) * mu,
+                       vals.dtype)
+    lib = library_ms(dia_csr(vals, offs), x.reshape(-1, mu))
+    print(f"  {name} (S={S}, n={n}, mu={mu}, {dtype_name(vals.dtype)}): "
+          f"kernel {k_ms * 1e3:.2f} us, plain canvas form "
+          f"{p_ms * 1e3:.2f} us, torch.sparse.mm "
+          + ("not timed" if lib is None else f"{lib * 1e3:.2f} us")
+          + f" (L2 flushed); bound {b_ms * 1e3:.2f} us ({b_by}) = "
+          f"{100 * b_ms / k_ms:.1f}% of the kernel's time; {launches} "
+          "launches on the path")
+    return kernel_record(
+        name, "hpddm_tpu_torch/csrc/dia_spmv.cu",
+        "hpddm_tpu/ops/pallas_spmv.py:98" if mu == 1 else
+        "hpddm_tpu/ops/pallas_spmv.py:167", launches, err, k_ms, p_ms,
+        b_ms, b_by, lib)
+
+
+def phase_gmv_cells():
+    """Phase 14: the GMV cells on the slab exchange and the canvas
+    operator (examples/bench_gmv.py), f64: bench.py's 2048x2048/16 and the
+    banded grid card cell's 512x512/64. Per cell: a chain of gmv calls
+    (the path, counts from here), then its time, nonzeros per second,
+    share of the bound and device operations, the SpMM and the three
+    exchanges (slab, plain general, B5) back to back, B1/B2 against the
+    plain canvas form (bitwise) and the slab exchange against the general
+    one. Returns the B1 record of the path."""
+    import torch
+    from hpddm_tpu_torch.examples import bench_gmv
+    from hpddm_tpu_torch.ops import dia_spmv as kmod
+    from hpddm_tpu_torch.parallel.ops import exchange
+
+    print("phase 14: GMV cells (generate_uniform, overlap 1, slab exchange, "
+          "canvas operator, f64)")
+    plain = count_plain_calls()
+    rng = np.random.default_rng(14)
+    rec = None
+    for S, N in ((16, 2048), (64, 512)):
+        state, x, t = bench_gmv.cell(S, N)
+        dec = state.dec
+        check(dec.grid is not None and state.A.canvas_hw is not None,
+              f"{N}x{N}/{S}: no slab plan or canvas")
+        kmod.launches = kmod.spmm_launches = 0
+        plain[0] = 0
+        bench_gmv.chain_ms(state, x)
+        b1, b2, plain_calls = kmod.launches, kmod.spmm_launches, plain[0]
+        print(f"  {N}x{N}/{S}: setup {t:.2f} s, n_max {dec.n_max}, canvas "
+              f"{state.A.canvas_hw}, slab strips t={dec.grid.t}; the gmv "
+              f"chain launched dia_spmv {b1} times, dia_spmm {b2}, "
+              f"plain-version calls on the card {plain_calls}")
+        check(b1 > 0, f"{N}x{N}/{S}: dia_spmv never launched on the path")
+        check(plain_calls == 0, f"{plain_calls} plain-version calls on "
+              "the card")
+        r = bench_gmv.measure(state, x)
+        bench_gmv.report(S, N, r)
+        err = canvas_checks(state.A, rng, (1, 4, 8))
+        y = torch.as_tensor(rng.normal(size=(S, dec.n_max, 3)), device="cuda")
+        ex = {k: exchange(d, y) for k, d in bench_gmv.exchanges(dec).items()}
+        d_gen = float((ex["slab"] - ex["general"]).abs().max())
+        d_b5 = float((ex["B5"] - ex["general"]).abs().max())
+        print(f"  exchanges at mu=3: slab - general {d_gen:.3e}, B5 - "
+              f"general {d_b5:.3e} (max |y| {float(y.abs().max()):.2f})")
+        check(d_gen <= 1e-13 and d_b5 == 0.0,
+              f"exchanges disagree: slab {d_gen:.3e}, B5 {d_b5:.3e}")
+        if rec is None:
+            rec = canvas_record("dia_spmv canvas GMV path", state.A, 1, b1,
+                                err)
+        del state, x, y, ex
+    return rec
+
+
+def phase_flagship():
+    """Phase 15: flagship512 (examples/flagship.py): f32 with the host
+    refinement and the double-word refinement, then f64 with no
+    refinement; the launches of the path; B2 at mu = nu = 8 on the
+    flagship's canvas operator against the plain canvas form. Returns
+    the B2 record of the path."""
+    import torch
+    from hpddm_tpu_torch.examples import flagship
+    from hpddm_tpu_torch.ops import dia_spmv as kmod
+
+    print(f"phase 15: flagship512 (generate_uniform({flagship.FLAGSHIP_N}, "
+          f"{flagship.FLAGSHIP_NX}, {flagship.FLAGSHIP_NX}), contrast 1e4 "
+          "channel, Jacobi-scaled, banded, Lanczos GenEO nu=8, bsr coarse, "
+          "deflated)")
+    plain = count_plain_calls()
+    kmod.launches = kmod.spmm_launches = 0
+    plain[0] = 0
+    r32, _ = flagship.run(np.float32)
+    r64, st64 = flagship.run(np.float64)
+    b1, b2, plain_calls = kmod.launches, kmod.spmm_launches, plain[0]
+    for r in (r32, r64):
+        flagship.report(r)
+    want64 = flagship.FLAGSHIP_ITS["float64"]
+    want32 = flagship.FLAGSHIP_ITS["float32, GenEO op by op"]
+    print(f"  JAX package's CPU counts: f64 {want64}; f32 "
+          f"{flagship.FLAGSHIP_ITS['float32']} with its f32 Lanczos "
+          f"jitted, {want32} with it op by op; dia_spmv launches "
+          f"{b1}, dia_spmm {b2} (the bsr assembly's mu=8 panels), "
+          f"plain-version calls on the card {plain_calls}")
+    print(f"  f32 + refinement against f64: time to true 1e-8 "
+          f"{r32['time_to_1e-8_s']} s against {r64['time_to_1e-8_s']} s; "
+          f"setup {r32['setup_s']:.3f} s against {r64['setup_s']:.3f} s")
+    for r in (r32, r64):
+        check(r["true_relres"] <= 1e-8,
+              f"{r['dtype']}: true rel. residual {r['true_relres']:.3e}")
+    check(r64["iterations"] == want64,
+          f"f64: {r64['iterations']} != {want64} (JAX CPU f64)")
+    # f32: within one of the JAX package's f32 count with its Lanczos run
+    # op by op, the arithmetic of the port's eager operations (jitted, XLA
+    # rounds the inner solve's noisy refinement residual otherwise: 27);
+    # the card's f32 sums are ordered otherwise than the CPU's
+    check(abs(r32["iterations"] - want32) <= 1,
+          f"f32: {r32['iterations']} not within 1 of {want32}")
+    check(b1 > 0 and b2 > 0, f"launches on the path: dia_spmv {b1}, "
+          f"dia_spmm {b2}")
+    check(plain_calls == 0, f"{plain_calls} plain-version calls on the card")
+    err = canvas_checks(st64.A, np.random.default_rng(15), (1, 8))
+    return canvas_record("dia_spmm canvas flagship bsr assembly", st64.A, 8,
+                         b2, err)
+
+
 def main():
     import torch
 
@@ -1565,8 +1753,12 @@ def main():
     banded += phase_banded_unstructured(unstr_cell, unstr)
     del unstr_cell
     lap("phase 13")
+    canvas = [phase_gmv_cells()]
+    lap("phase 14")
+    canvas.append(phase_flagship())
+    lap("phase 15")
 
-    kernels = {"kernels": [dia, *spmm, *unstr, *banded]}
+    kernels = {"kernels": [dia, *spmm, *unstr, *banded, *canvas]}
     print(f"wall {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps(kernels))

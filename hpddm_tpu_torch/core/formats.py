@@ -35,10 +35,21 @@ from hpddm_tpu_torch.ops.ell_spmv import EllPayload, build_payload
 
 @dataclasses.dataclass(frozen=True)
 class BatchedDIA:
-    """Diagonal-format batch: values[s, k, i] = A_s[i, i + offsets[k]]."""
+    """Diagonal-format batch: values[s, k, i] = A_s[i, i + offsets[k]].
+
+    canvas_hw: the (H, W) grid box of every subdomain, set by
+    ``Schwarz.set_grid_geometry`` on a uniform grid with seam-safe values.
+    There the 2-D canvas form (``ops/spmv.spmm_dia_canvas``) computes
+    the flat form's sums, so every product keeps the flat path (the DIA
+    kernels on the card); the annotation records the seam check and
+    gives the canvas form its shape. The JAX package also
+    keeps pre-split per-diagonal planes (``values_planes``) to stop XLA
+    from copying slices of the packed buffer inside a jitted loop; a torch
+    view of a plane costs nothing, so the port has no such field."""
     values: torch.Tensor                  # (S, ndiag, n_max), contiguous
     offsets: Tuple[int, ...]
     n_max: int
+    canvas_hw: Optional[Tuple[int, int]] = None
 
 
 @dataclasses.dataclass(frozen=True)

@@ -11,18 +11,24 @@ Keys of ``arrays`` (numpy arrays unless stated):
 * decomposition: ``n_loc``, ``d``, ``if_idx``, ``if_gid``, ``if_mask``,
   ``ov_mask``, ``mult``, ``partners``, ``inv_map``, ``is_if``; ints
   ``S``, ``n_max``, ``m_max``, ``n_if``, ``n_global``, ``k_max``; tuple
-  ``sub_shifts`` (optional);
+  ``sub_shifts`` (optional); ``grid`` (optional): the fields of the JAX
+  package's ``GridPlan`` as a dict (``nbr``, ``sxw``, ``syw``, ``onehot``
+  arrays, ints ``H``, ``W``, ``t``, ``S``, ``gx``, ``gy``, bool
+  ``regular``, tuples ``sxw_s``, ``syw_s``), which routes the exchange
+  through the slab plan;
 * local matrices: DIA as ``A_values`` (S, nd, n_max) and ``A_offsets``
-  (tuple), or ELL as ``A_values`` (S, n_max, w) and ``A_cols`` (S, n_max,
+  (tuple) with ``A_canvas_hw`` (optional, the canvas (H, W)), or ELL as ``A_values`` (S, n_max, w) and ``A_cols`` (S, n_max,
   w), the JAX package's row-major layout; an ELL operator is stored
   slot-major with its kernel payload and gets the one-pass exchange plan,
   as ``Schwarz`` gives them;
-* local solver: ``inv`` as ``factor`` (S, n_max, n_max), or banded as
+* local solver (absent for an ``operator_state``): ``inv`` as ``factor``
+  (S, n_max, n_max), or banded as
   ``Dinv``, ``cl``, ``cu``, ``idx_fwd``, ``msk_fwd``, ``idx_inv``,
   ``msk_inv`` (the JAX package's ``BandedSolver`` arrays) and ints
   ``wy_max``, ``wx_max``, ``cw``;
 * coarse space (optional; absent for one level): ``Z``, ``E_inv``,
-  ``nu_loc``; int ``nu_max``; str ``correction``;
+  ``nu_loc``; int ``nu_max``; str ``correction`` (a direct coarse solve,
+  whether E was assembled dense or block-sparse);
 * ``variant`` (str) and ``bc`` (array or None).
 """
 
@@ -40,6 +46,7 @@ from hpddm_tpu_torch.dtypes import as_torch_dtype
 from hpddm_tpu_torch.ops.banded_solve import BandedSolver
 from hpddm_tpu_torch.ops.local_solve import LocalSolver
 from hpddm_tpu_torch.parallel.decomposition import Decomposition
+from hpddm_tpu_torch.parallel.grid import GridPlan
 from hpddm_tpu_torch.parallel.pexchange import build_plan
 from hpddm_tpu_torch.precond.schwarz import CoarseState, SchwarzState
 
@@ -79,6 +86,15 @@ def state_from_numpy(arrays: Dict[str, Any], device=DEFAULT,
         partners=i("partners"), inv_map=i("inv_map"), is_if=b("is_if"),
         sub_shifts=tuple(arrays.get("sub_shifts", ())),
         **{k: int(arrays[k]) for k in DEC_INT_KEYS})
+    grid = arrays.get("grid")
+    if grid is not None:
+        dec = dataclasses.replace(dec, grid=GridPlan(
+            **{k: torch.as_tensor(np.array(grid[k]), device=device)
+               for k in ("nbr", "sxw", "syw", "onehot")},
+            **{k: int(grid[k]) for k in ("H", "W", "t", "S", "gx", "gy")},
+            regular=bool(grid["regular"]),
+            sxw_s=tuple(map(tuple, grid["sxw_s"])),
+            syw_s=tuple(map(tuple, grid["syw_s"]))))
     if arrays.get("A_cols") is not None:
         A = BatchedELL.from_slot_major(
             f("A_values").transpose(1, 2).contiguous(),
@@ -86,9 +102,11 @@ def state_from_numpy(arrays: Dict[str, Any], device=DEFAULT,
             int(arrays["n_max"]))
         dec = dataclasses.replace(dec, pexch=build_plan(dec))
     else:
+        hw = arrays.get("A_canvas_hw")
         A = BatchedDIA(values=f("A_values").contiguous(),
                        offsets=tuple(int(o) for o in arrays["A_offsets"]),
-                       n_max=int(arrays["n_max"]))
+                       n_max=int(arrays["n_max"]),
+                       canvas_hw=None if hw is None else tuple(map(int, hw)))
     coarse = None
     if arrays.get("Z") is not None:
         coarse = CoarseState(
@@ -103,8 +121,10 @@ def state_from_numpy(arrays: Dict[str, Any], device=DEFAULT,
             wy_max=int(arrays["wy_max"]), wx_max=int(arrays["wx_max"]),
             n_max=int(arrays["n_max"]), S=int(arrays["S"]),
             cw=int(arrays["cw"]))
-    else:
+    elif arrays.get("factor") is not None:
         solver = LocalSolver(kind="inv", factor=kept("factor"))
+    else:
+        solver = None                                 # operator_state
     bc = arrays.get("bc")
     return SchwarzState(
         dec=dec, A=A, solver=solver, coarse=coarse,

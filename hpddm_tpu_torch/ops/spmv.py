@@ -7,6 +7,14 @@
   through the SpMM kernel (``dia_spmm``, the port of
   ``_dia_spmv_blocked_mu``). The JAX package keeps mu > 1 on XLA after a
   TPU measurement (``_MAX_PALLAS_MU``); that says nothing of this card.
+  A DIA batch annotated with its grid box (``canvas_hw``) takes the same
+  flat path on both devices, where the JAX package takes its 2-D canvas
+  form (``hpddm_tpu/ops/spmv.py:208-209``): the seam check guarantees
+  that the canvas form reads zero padding exactly where the flat form
+  reads a stored zero, so for finite x the two compute the same sums in
+  the same order, bitwise, and B1/B2 compute them in one launch where a
+  torch canvas form takes about two per diagonal. The plain canvas form
+  (``spmm_dia_canvas``) stays as the parity reference.
 * ELL: a gather and a sum over each row's slots of the slot-major batch.
   Every ELL product on a CUDA tensor, any mu, goes through
   the hand-written kernel (ops/ell_spmv.py) with the batch's payload, as
@@ -20,6 +28,7 @@ All operate on a batch x: (S, n_max, mu).
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from hpddm_tpu_torch.core.formats import BatchedDense, BatchedDIA, BatchedELL
 from hpddm_tpu_torch.ops.dia_spmv import (dia_spmm, dia_spmv,
@@ -30,6 +39,47 @@ from hpddm_tpu_torch.ops.ell_spmv import ell_spmv, ell_spmv_reference
 def spmm_dia(A: BatchedDIA, x: torch.Tensor) -> torch.Tensor:
     """Plain version: y[s, i, :] = sum_k vals[s, k, i] * x[s, i + off_k, :]."""
     return dia_spmv_reference(A.values, x, A.offsets)
+
+
+def dia_canvas_moves(offsets, Wd: int):
+    """The flat DIA offsets as 2-D canvas moves (di, dj) with |di|, |dj|
+    <= 1 on a canvas of width Wd, or None if an offset is not
+    stencil-like."""
+    moves = []
+    for o in offsets:
+        di = int(round(o / Wd)) if Wd else 0
+        dj = int(o) - di * Wd
+        if abs(dj) > 1 or abs(di) > 1:
+            return None
+        moves.append((di, dj))
+    return moves
+
+
+def spmm_dia_canvas(A: BatchedDIA, x: torch.Tensor) -> torch.Tensor:
+    """Plain canvas form for grid stencils (A.canvas_hw set): the value
+    planes and each right-hand side viewed as (H, W) canvases, the +-W
+    diagonals as row moves and the +-1 diagonals as column moves into a
+    zero halo, summed in diagonal order from zero
+    (``hpddm_tpu/ops/spmv.py:66``; a panel is a leading batch axis, as
+    its ``spmm_dia_canvas_muT``). Valid where the E/W couplings vanish on
+    the canvas row seams (``Schwarz.set_grid_geometry`` checks); a
+    non-stencil offset pattern takes the flat form. ``spmm`` does not
+    call it: it is the reference that the flat path is held to."""
+    H, Wd = A.canvas_hw
+    moves = dia_canvas_moves(A.offsets, Wd)
+    if moves is None:
+        return spmm_dia(A, x)
+    S, k, n = A.values.shape
+    mu = x.shape[-1]
+    vc = A.values.reshape(S, k, H, Wd)
+    xc = x.permute(0, 2, 1).reshape(S, mu, H, Wd)
+    xp = F.pad(xc, (1, 1, 1, 1))
+    out = xc.new_zeros((S, mu, H, Wd),
+                       dtype=torch.result_type(A.values, x))
+    for ki, (di, dj) in enumerate(moves):
+        out = out + vc[:, ki, None] * \
+            xp[:, :, 1 + di: 1 + di + H, 1 + dj: 1 + dj + Wd]
+    return out.reshape(S, mu, n).permute(0, 2, 1).contiguous()
 
 
 def spmm_ell(A: BatchedELL, x: torch.Tensor) -> torch.Tensor:

@@ -7,10 +7,12 @@ global *interface numbering* by union-find, so that the runtime exchange
 mathematically the reference's sum-reduce of duplicated unknowns
 (HPDDM_subdomain.hpp:115-130), with a fixed reduction order.
 
-This slice ports the general path: the caller's local numbering is kept
-(``renumber=False``) and there is no structured-grid plan. The optional
-``pexch`` plan routes the exchange of CUDA tensors through the one-pass
-kernel (parallel/pexchange.py); ``Schwarz`` attaches it for ELL operators.
+The caller's local numbering is kept (``renumber=False``). Two optional
+plans route the exchange (parallel/ops.py): ``grid``, the uniform-grid
+slab plan (parallel/grid.py) that ``Schwarz.set_grid_geometry`` attaches,
+and ``pexch``, which sends the exchange of CUDA tensors through the
+one-pass kernel (parallel/pexchange.py); ``Schwarz`` attaches it for ELL
+operators.
 """
 
 from __future__ import annotations
@@ -69,6 +71,7 @@ class Decomposition:
     is_if : (S, n_max) bool.
     pexch : the one-pass exchange plan (parallel/pexchange.ExchangePlan),
         or None.
+    grid : the uniform-grid slab plan (parallel/grid.GridPlan), or None.
 
     Index tensors are int64 (torch's index type); their values equal the
     JAX package's int32 arrays.
@@ -91,6 +94,7 @@ class Decomposition:
     k_max: int
     sub_shifts: Tuple[int, ...] = ()
     pexch: Optional[object] = None
+    grid: Optional[object] = None
 
     @property
     def device(self) -> torch.device:

@@ -8,11 +8,14 @@ device, so no collective is needed (the JAX package's ``axis_name=None``):
 
 * ``exchange``: gather the interface values, add the partner copies, write
   the sums back. Fixed reduction order; bitwise equal to the JAX package's
-  general path (``parallel/ops.py:184-237``). With a plan attached
+  general path (``parallel/ops.py:184-237``). With a grid plan attached
+  (``dec.grid``, ``Schwarz.set_grid_geometry``) every tensor takes the
+  slab exchange (parallel/grid.py) first, as in the JAX package
+  (``parallel/ops.py:198-200``). Else, with a one-pass plan attached
   (``dec.pexch``, ELL operators) a CUDA tensor takes the one-pass kernel
-  instead (parallel/pexchange.py), as the JAX package sends it to its
-  Pallas exchange (``parallel/ops.py:224-230``); the result is the same
-  to the bit.
+  (parallel/pexchange.py), as the JAX package sends it to its Pallas
+  exchange (``parallel/ops.py:224-230``); the result is the same to the
+  bit.
 * ``scaled_exchange``: multiply by the POU first (``Schwarz::exchange``).
 * ``weighted_dot`` / ``weighted_norm_sq`` / ``weighted_gram``: the
   POU-weighted reductions of the Krylov loop.
@@ -23,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from hpddm_tpu_torch.parallel.decomposition import Decomposition
+from hpddm_tpu_torch.parallel.grid import grid_exchange
 from hpddm_tpu_torch.parallel.pexchange import pexchange
 
 
@@ -57,6 +61,8 @@ def exchange(dec: Decomposition, x: torch.Tensor) -> torch.Tensor:
     x: (S, n_max, mu). Afterwards every copy of a shared dof holds the sum
     of all copies; interior dofs are untouched. Returns a new contiguous
     tensor."""
+    if dec.grid is not None:
+        return grid_exchange(dec.grid, x)
     if dec.pexch is not None and x.is_cuda:
         return pexchange(dec.pexch, x.contiguous())
     mu = x.shape[-1]

@@ -16,13 +16,15 @@ runtime methods are plain functions over it:
   (HPDDM_schwarz.hpp:761-803).
 
 ``Schwarz`` is the setup: decomposition, DIA or ELL packing (with the
-one-pass exchange plan for ELL operators), GenEO (the dense pencil, or
+one-pass exchange plan for ELL operators), the grid slab exchange and
+canvas annotation of ``set_grid_geometry``, GenEO (the dense pencil, or
 shift-invert Lanczos with banded or ``inv``-preconditioned inner solves),
 ``inv`` or banded (block-tridiagonal, on grid boxes or through RCM) local
-factors and the dense Galerkin coarse operator. It puts everything on the
-card unless the caller passes ``device="cpu"``. The other setup branches
-of the JAX package (block-sparse and multilevel coarse operators, FFT and
-Chebyshev local solvers, the grid exchange and canvas, the
+factors and the Galerkin coarse operator, assembled dense or
+neighbour-block-sparse and inverted for a replicated direct solve. It
+puts everything on the card unless the caller passes ``device="cpu"``.
+The other setup branches of the JAX package (nested Krylov and
+multilevel coarse solves, FFT and Chebyshev local solvers, the
 interface-first layout) raise ``NotImplementedError`` naming their slice
 in ROADMAP.md.
 """
@@ -38,7 +40,8 @@ import scipy.sparse as sp
 import torch
 
 from hpddm_tpu_torch.core.csr import MatrixCSR
-from hpddm_tpu_torch.core.formats import (BatchedELL, batched_dense_from,
+from hpddm_tpu_torch.core.formats import (BatchedDIA, BatchedELL,
+                                          batched_dense_from,
                                           pack_local_matrices)
 from hpddm_tpu_torch.device import DEFAULT, as_device, synchronize
 from hpddm_tpu_torch.dtypes import HPDDM_EPS, HPDDM_PEN, as_torch_dtype
@@ -46,15 +49,23 @@ from hpddm_tpu_torch.ops.banded_solve import (BandedSolver,
                                               build_banded_solver,
                                               build_banded_solver_rcm)
 from hpddm_tpu_torch.ops.local_solve import LocalSolver, invert, promoted
-from hpddm_tpu_torch.ops.spmv import spmm
+from hpddm_tpu_torch.ops.spmv import dia_canvas_moves, spmm
 from hpddm_tpu_torch.options import Options
 from hpddm_tpu_torch.parallel.decomposition import Decomposition
+from hpddm_tpu_torch.parallel.grid import build_grid_plan
 from hpddm_tpu_torch.parallel.ops import exchange, scaled_exchange
 from hpddm_tpu_torch.parallel.pexchange import build_plan
 
-# dense Galerkin assembly memory cap: above it the JAX package switches to
-# the block-sparse coarse operator, which this slice does not have
+# dense Galerkin assembly memory cap: above it the coarse operator is
+# assembled block-sparse unless coarse_assembly=dense was asked for
 _DENSE_COARSE_BYTES_CAP = 2 << 30
+
+
+def _is_herm(m: MatrixCSR) -> bool:
+    """A local matrix equal to its conjugate transpose, entry for entry."""
+    c = m.scipy(expand=True).tocsr()
+    d = (c - c.conj().T).tocoo()
+    return d.nnz == 0 or not np.any(d.data != 0)
 
 
 def _not_ported(what: str, where: str) -> NotImplementedError:
@@ -214,7 +225,9 @@ class Schwarz:
     ``timings`` holds the wall seconds of each setup phase run so far
     ("geneo", "factorize", "coarse"; with Lanczos GenEO also
     "neumann_factor", "lanczos_steps" and "lanczos_eig", parts of
-    "geneo"), each ending in a device synchronization. With
+    "geneo"; with the block-sparse coarse assembly "coarse_bsr_blocks"
+    and "coarse_pinv", parts of "coarse"), each ending in a device
+    synchronization. With
     ``local_solver=banded`` through RCM, ``rcm_bandwidths`` holds the
     bandwidth of each subdomain's factor.
     """
@@ -250,6 +263,7 @@ class Schwarz:
         self._deflation_vectors: Optional[List[np.ndarray]] = None
         self._banded_shapes: Optional[List[tuple]] = None
         self._grid_geometry: Optional[tuple] = None
+        self._herm_all: Optional[bool] = None
         self.rcm_bandwidths: Optional[List[int]] = None
         self.timings: Dict[str, float] = {}
 
@@ -566,26 +580,72 @@ class Schwarz:
     def set_grid_geometry(self, boxes, Nx: int, Ny: int) -> None:
         """Attach the generator's subdomain boxes (i0, i1, j0, j1) on an
         Nx x Ny grid: banded local solves then factor on the boxes instead
-        of through RCM. Only the geometry is stored: the JAX package also
-        switches the exchange to its grid plan and the SpMV to its canvas
-        form here (``hpddm_tpu/precond/schwarz.py:1290-1298``), which are
-        slice 3b. The general exchange stays; the JAX package holds its two
-        exchanges within 1e-13 of each other
-        (``tests/test_grid_exchange.py:37-45``)."""
+        of through RCM; on a uniform-box grid whose boxes fill n_max the
+        exchange switches to the slab plan (parallel/grid.py), and a
+        seam-safe DIA operator is annotated for the canvas form
+        (``hpddm_tpu/precond/schwarz.py:1284-1297``)."""
         self._grid_geometry = (list(boxes), int(Nx), int(Ny))
+        plan = build_grid_plan(boxes, device=self.device)
+        if plan is not None and plan.H * plan.W == self.dec.n_max:
+            self.dec = dataclasses.replace(self.dec, grid=plan)
+        self._try_canvas_annotate()
+
+    def _try_canvas_annotate(self) -> None:
+        """Annotate the packed DIA matrix with its canvas (H, W) when the
+        boxes are uniform and fill n_max, every offset is a canvas move
+        and the values are seam-safe: every coupling whose move shifts
+        columns (dj != 0) vanishes where the move leaves the canvas row,
+        checked on the host CSR copies (the reference generator's +-(W-1)
+        offsets are diagonal moves). An operator with a seam coupling
+        stays flat. The JAX package's transpose-plane map
+        (``_canvas_symmetry``) is off unless an environment variable asks
+        for it and measured slower there; the port leaves it out."""
+        geo = self._grid_geometry
+        if geo is None or not isinstance(self.A, BatchedDIA) or \
+                self.A.canvas_hw is not None:
+            return
+        hw = {(j1 - j0, i1 - i0) for (i0, i1, j0, j1) in geo[0]}
+        if len(hw) != 1:
+            return
+        (H, W), = hw
+        if H * W != self.n_max or any(m.n != self.n_max for m in self.mats):
+            return
+        moves = dia_canvas_moves(self.A.offsets, W)
+        if moves is None or W < 2:
+            return
+        for m in self.mats:
+            c = m.scipy(expand=True).tocoo()
+            off = c.col - c.row
+            colpos = c.row % W
+            for o, (_, dj) in zip(self.A.offsets, moves):
+                if dj == 0:
+                    continue
+                edge = (colpos == W - 1) if dj == 1 else (colpos == 0)
+                if np.any((off == o) & edge & (c.data != 0)):
+                    return              # a seam coupling: keep the flat form
+        self.A = dataclasses.replace(self.A, canvas_hw=(H, W))
+
+    def operator_state(self) -> SchwarzState:
+        """A state with no factorization, for ``gmv`` and
+        ``compute_residual`` only (SpMV benchmarks, matrix-free use)."""
+        return SchwarzState(dec=self.dec, A=self.A, solver=None,
+                            coarse=None, variant="none")
 
     def _build_coarse(self, correction: str, dtype) -> CoarseState:
         """Assemble E = Z^T A Z and invert it (replicated coarse solve).
 
         Z columns: user vectors (set_vectors) or GenEO eigenvectors
-        (solve_gevp); the constant vector by default."""
+        (solve_gevp); the constant vector by default. E is assembled dense
+        (``_assemble_E``) or neighbour-block-sparse (``_bsr_blocks``):
+        ``coarse_assembly=bsr``, or by itself where the dense assembly's
+        (S, n_max, S*nu) tensor would pass ``_DENSE_COARSE_BYTES_CAP``
+        (an explicit ``coarse_assembly=dense`` is kept, with a warning)."""
         opt = self.opt
         lvl = opt.level(2)
-        if (opt.val("coarse_assembly") or "dense") != "dense":
-            raise _not_ported("coarse_assembly=bsr", "ROADMAP queue A, slice 3")
         if "krylov_method" in lvl or opt.set("level_2_tol"):
-            raise _not_ported("iterative (level-2) coarse solves",
-                              "ROADMAP queue A, slices 3 and 5")
+            raise _not_ported("iterative (level-2) coarse solves "
+                              "(coarse modes 'iterative' and 'bsr')",
+                              "ROADMAP queue A, slice 3d")
         if lvl.val("dump_matrix"):
             raise _not_ported("-hpddm_level_2_dump_matrix",
                               "ROADMAP queue A, slice 5")
@@ -597,27 +657,176 @@ class Schwarz:
             vecs = self._deflation_vectors
         nu_loc = np.array([v.shape[1] for v in vecs], dtype=np.int32)
         nu_max = int(nu_loc.max(initial=1))
-        bytes_dense = S * self.n_max * S * nu_max * dtype.itemsize
-        if bytes_dense > _DENSE_COARSE_BYTES_CAP:
-            raise _not_ported(
-                f"a {bytes_dense / (1 << 30):.1f} GB dense Galerkin tensor "
-                "(the JAX package switches to the block-sparse coarse "
-                "operator)", "ROADMAP queue A, slice 3")
         Z = np.zeros((S, self.n_max, nu_max), dtype=np.asarray(vecs[0]).dtype)
         for s, v in enumerate(vecs):
             Z[s, : v.shape[0], : v.shape[1]] = v
         Z = torch.as_tensor(Z, device=self.device).to(dtype)
-        E = self._assemble_E(Z, nu_loc, nu_max)
         coarse_dtype = opt.val("coarse_dtype")
-        if coarse_dtype not in (None, "same"):
-            # -hpddm_coarse_dtype: the coarse operator in reduced precision
-            # (``hpddm_tpu/precond/schwarz.py:2021-2023``); it is inverted
-            # in f64 and rounded once, and the Krylov dispatch switches
-            # GMRES to its flexible variant
-            E = E.to(as_torch_dtype(coarse_dtype))
-        return CoarseState(Z=Z, E_inv=invert(E),
+        low = None if coarse_dtype in (None, "same") \
+            else as_torch_dtype(coarse_dtype)
+        bsr = (opt.val("coarse_assembly") or "dense") == "bsr"
+        bytes_dense = S * self.n_max * S * nu_max * dtype.itemsize
+        if not bsr and bytes_dense > _DENSE_COARSE_BYTES_CAP:
+            if opt.set("coarse_assembly"):
+                print(f"WARNING -- coarse_assembly=dense materializes "
+                      f"{bytes_dense / (1 << 30):.1f} GB "
+                      f"(S={S}, nu={nu_max}); consider bsr")
+            else:
+                if int(opt.val("verbosity", 0)) >= 1:
+                    print(f"coarse assembly auto-switched to bsr "
+                          f"(dense would take "
+                          f"{bytes_dense / (1 << 30):.1f} GB)")
+                bsr = True
+        if bsr:
+            E_inv = self._bsr_direct_inverse(Z, nu_loc, nu_max, low)
+        else:
+            E = self._assemble_E(Z, nu_loc, nu_max)
+            if low is not None:
+                # -hpddm_coarse_dtype: the coarse operator in reduced
+                # precision (``hpddm_tpu/precond/schwarz.py:2021-2023``);
+                # it is inverted in f64 and rounded once, and the Krylov
+                # dispatch switches GMRES to its flexible variant
+                E = E.to(low)
+            E_inv = invert(E)
+        return CoarseState(Z=Z, E_inv=E_inv,
                            nu_loc=torch.as_tensor(nu_loc, device=self.device),
                            nu_max=nu_max, correction=correction)
+
+    def _bsr_blocks(self, Z: torch.Tensor, nu_loc: np.ndarray, nu_max: int):
+        """Neighbour-block-sparse Galerkin blocks (the reference's sparsity
+        pattern 's', HPDDM_operator.hpp:378-562; the JAX package's
+        ``_build_coarse_bsr``, ``hpddm_tpu/precond/schwarz.py:1737-1852``):
+
+        * E_diag[s] = (D Z_s)^H A_s (D Z_s), identity on inactive slots;
+        * E_nb[s, j] = (A_s^H D Z_s)[shared]^H (D Z_q)[shared] for the j-th
+          neighbour q = nbr_sub[s, j]: the product lives on the interface
+          slab, since a coarse column is supported on one subdomain and
+          A_s's rows are complete wherever d_s != 0.
+
+        ``coarse_galerkin=accumulation`` forms each subdomain's partial
+        overlap contribution X_s^H (D_s A_s X_s) over the restrictions of
+        its own and its neighbours' coarse vectors and adds them on the
+        host in a fixed loop order (MatrixAccumulation,
+        HPDDM_operator.hpp:563-1021). Memory and work are O(S *
+        neighbours). Returns (E_diag (S, nu, nu), E_nb (S, K, nu, nu),
+        nbr_sub (S, K) host ints, sentinel S)."""
+        dec = self.dec
+        S, m_max = dec.S, dec.m_max
+        Av = self.A.values
+        DZ = dec.d[:, :, None] * Z                           # (S, n, nu)
+        W = spmm(self.A, promoted(DZ, Av))
+        E_diag = torch.bmm(promoted(DZ, W).conj().transpose(1, 2),
+                           promoted(W, DZ))
+        if self._herm_all is None:
+            # about 0.4 s a matrix at the flagship: once per matrix set
+            self._herm_all = all(_is_herm(m) for m in self.mats)
+        if self._herm_all:
+            V = W.to(Z.dtype)                                # A^H = A
+        else:
+            A_H = pack_local_matrices(
+                [MatrixCSR(m.scipy().conj().T.tocsr()) for m in self.mats],
+                n_max=self.n_max, fmt="auto", device=self.device)
+            V = spmm(A_H, DZ.to(Av.dtype)).to(Z.dtype)
+        gidx = dec.if_idx[:, :, None].expand(-1, -1, nu_max)
+        msk = dec.if_mask[:, :, None]
+        zero = DZ.new_zeros(())
+        Vif = torch.where(msk, torch.gather(V, 1, gidx), zero)
+        DZif = torch.where(msk, torch.gather(DZ, 1, gidx), zero)
+        flat = torch.cat([DZif.reshape(S * m_max, nu_max),
+                          DZif.new_zeros((1, nu_max))])
+        pvals = flat[dec.partners]                           # (S, m, k, nu)
+
+        # partner slots grouped by neighbour subdomain (host, setup only)
+        psub = dec.partners.cpu().numpy() // m_max           # sentinel -> S
+        nbrs = [sorted(set(psub[s][psub[s] < S].tolist())) for s in range(S)]
+        K = max([len(nb) for nb in nbrs] + [1])
+        nbr_sub = np.full((S, K), S, dtype=np.int64)
+        for s, nb in enumerate(nbrs):
+            nbr_sub[s, : len(nb)] = nb
+
+        def mask_of(j):
+            return torch.as_tensor(psub == nbr_sub[:, j, None, None],
+                                   device=self.device)
+
+        if (self.opt.val("coarse_galerkin") or "multiplication") \
+                == "accumulation":
+            ar = torch.arange(S, device=self.device)[:, None]
+            nbr_cols = []
+            for j in range(K):
+                vals_j = torch.sum(torch.where(mask_of(j)[..., None], pvals,
+                                               zero), dim=2)  # (S, m, nu)
+                Xq = DZ.new_zeros((S, self.n_max, nu_max))
+                Xq.index_put_((ar.expand_as(dec.if_idx), dec.if_idx),
+                              torch.where(msk, vals_j, zero), accumulate=True)
+                nbr_cols.append(Xq)
+            Xloc = torch.cat([DZ] + nbr_cols, dim=2)
+            AX = spmm(self.A, Xloc.to(Av.dtype)).to(Z.dtype)
+            DAX = dec.d[:, :, None] * AX
+            G = torch.bmm(promoted(Xloc, DAX).conj().transpose(1, 2),
+                          promoted(DAX, Xloc)).cpu().numpy()
+            nu = nu_max
+            Ed_acc = np.zeros((S, nu, nu), dtype=G.dtype)
+            En_acc = np.zeros((S, K, nu, nu), dtype=G.dtype)
+            rpos = [{int(q): j for j, q in enumerate(nbr_sub[s]) if q < S}
+                    for s in range(S)]
+            for s in range(S):
+                ids = [s] + [int(q) for q in nbr_sub[s] if q < S]
+                for a, qa in enumerate(ids):
+                    Ga = G[s, a * nu:(a + 1) * nu]
+                    for b, qb in enumerate(ids):
+                        blk = Ga[:, b * nu:(b + 1) * nu]
+                        if qa == qb:
+                            Ed_acc[qa] += blk
+                        elif qb in rpos[qa]:
+                            En_acc[qa, rpos[qa][qb]] += blk
+            E_diag = torch.as_tensor(Ed_acc, device=self.device)
+            E_nb = torch.as_tensor(En_acc, device=self.device)
+        else:
+            Vc = Vif.conj()
+            E_nb = torch.stack([
+                torch.einsum("smk,sma,smkb->sab", mask_of(j).to(Vif.dtype),
+                             Vc, pvals) for j in range(K)], dim=1)
+
+        act = torch.as_tensor(np.arange(nu_max)[None, :]
+                              < nu_loc[:, None], device=self.device)
+        eye = torch.eye(nu_max, dtype=E_diag.dtype, device=self.device)
+        E_diag = torch.where(act[:, :, None] & act[:, None, :], E_diag, eye)
+        return E_diag, E_nb, nbr_sub
+
+    def _bsr_direct_inverse(self, Z: torch.Tensor, nu_loc: np.ndarray,
+                            nu_max: int, low) -> torch.Tensor:
+        """The replicated direct solve of the block-sparse E (no level-2
+        options: the reference's default, a direct factorization of the
+        assembled E, HPDDM_coarse_operator_impl.hpp:1630): the blocks in
+        ``low`` precision if -hpddm_coarse_dtype asks for one, scattered
+        into an N_c^2 host f64 matrix, pseudo-inverted with numpy
+        (``np.linalg.pinv``, rcond 1e-5 for f32 blocks, 1e-12 otherwise:
+        f32 products leave E numerically singular when the high GenEO
+        modes are nearly dependent) and rounded to the blocks' dtype."""
+        t0 = time.perf_counter()
+        E_diag, E_nb, nbr_sub = self._bsr_blocks(Z, nu_loc, nu_max)
+        self._timed("coarse_bsr_blocks", t0)
+        t0 = time.perf_counter()
+        if low is not None:
+            E_diag, E_nb = E_diag.to(low), E_nb.to(low)
+        S = self.dec.S
+        hd = np.complex128 if E_diag.is_complex() else np.float64
+        Ed = E_diag.cpu().to(torch.complex128 if E_diag.is_complex()
+                             else torch.float64).numpy()
+        En = E_nb.cpu().to(torch.complex128 if E_nb.is_complex()
+                           else torch.float64).numpy()
+        E_full = np.eye(S * nu_max, dtype=hd)
+        for s in range(S):
+            rows = slice(s * nu_max, (s + 1) * nu_max)
+            E_full[rows, rows] = Ed[s]
+            for j, q in enumerate(nbr_sub[s]):
+                if q < S:
+                    E_full[rows, q * nu_max:(q + 1) * nu_max] = En[s, j]
+        rcond = 1e-5 if E_diag.dtype == torch.float32 else 1e-12
+        E_inv = torch.as_tensor(np.linalg.pinv(E_full, rcond=rcond),
+                                device=self.device).to(E_diag.dtype)
+        self._timed("coarse_pinv", t0)
+        return E_inv
 
     def _assemble_E(self, Z: torch.Tensor, nu_loc: np.ndarray,
                     nu_max: int) -> torch.Tensor:

@@ -13,9 +13,9 @@ CPU in f64 (slice 3a).
 * Lanczos GenEO takes the JAX package's start vector and steps:
   eigenvalues at rtol 1e-8, eigenvector subspaces with every
   principal-angle cosine >= 1 - 1e-8.
-* Iteration counts equal the JAX package's. Its side keeps the general
-  exchange (``set_banded_shapes``, not ``set_grid_geometry``, which
-  would switch it to its grid exchange), as the port does.
+* Iteration counts equal the JAX package's. On grid boxes both sides
+  call ``set_grid_geometry``, which switches both to the slab exchange
+  and the canvas operator.
 * The ELL payload's plain version gives NaN where the JAX package's
   ``spmm_ell`` does when x[s, 0] is not finite.
 """
@@ -267,18 +267,16 @@ def test_lanczos_on_dense_operators():
 
 def _schwarz_pair(gens, options, jax_hook=True, port_geometry=True):
     """(JAX Schwarz, port Schwarz) on the same problem and options; grid
-    boxes through set_banded_shapes (JAX, general exchange) and
-    set_grid_geometry (port)."""
+    boxes through set_grid_geometry on both (the slab exchange)."""
     jgen, gen = gens
     jsch = jax_sz.Schwarz(jgen.mats, jgen.neighbors, jgen.mappings,
                           d=jgen.d, options=JaxOptions(**options))
     sch = sz.Schwarz(gen.mats, gen.neighbors, gen.mappings, d=gen.d,
                      options=Options(**options), device="cpu")
     if getattr(gen, "boxes", None) is not None:
-        if jax_hook:
-            jsch.set_banded_shapes([(j1 - j0, i1 - i0)
-                                    for (i0, i1, j0, j1) in jgen.boxes])
         N = gen.grid[2]
+        if jax_hook:
+            jsch.set_grid_geometry(jgen.boxes, N, N)
         if port_geometry:
             sch.set_grid_geometry(gen.boxes, N, N)
     return jsch, sch
@@ -438,8 +436,7 @@ def test_smoke_constant_is_the_jax_count_at_the_grid_cell():
                      local_solver="banded", tol=1e-6)
     sch = jax_sz.Schwarz(gen.mats, gen.neighbors, gen.mappings, d=gen.d,
                          options=opt)
-    sch.set_banded_shapes([(j1 - j0, i1 - i0)
-                           for (i0, i1, j0, j1) in gen.boxes])
+    sch.set_grid_geometry(gen.boxes, 512, 512)       # as phase 12 does
     sch.solve_gevp(gen.neumann)
     f = sch.exchange_rhs(jnp.asarray(_f(gen, sch.n_max)))
     res = jax_solve(sch.build(), f, opt=opt)

@@ -511,3 +511,53 @@ def test_banded_lanczos_path_never_runs_plain(cuda, monkeypatch, model):
     assert grew == ([True, False, False] if model == "grid"
                     else [False, True, True])
     assert calls[0] == 0
+
+
+@pytest.fixture(scope="module")
+def grid_ops():
+    """(CUDA operator state, CPU operator state) of generate_uniform(9, 24,
+    24, overlap=2) with set_grid_geometry: the slab plan and the canvas."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+    gen = diffusion2d.generate_uniform(9, 24, 24, overlap=2)
+    out = []
+    for device in ("cuda", "cpu"):
+        sch = Schwarz(gen.mats, gen.neighbors, gen.mappings, d=gen.d,
+                      device=device)
+        sch.set_grid_geometry(gen.boxes, 24, 24)
+        out.append(sch.operator_state())
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mu", [1, 2, 3, 8])
+def test_canvas_operator_kernels_match_plain_canvas_bitwise(grid_ops, mu,
+                                                            dtype):
+    """B1 (mu=1) and B2 (mu>1, 8 = the flagship's coarse panel) on a
+    seam-checked canvas operator compute the plain canvas form's sums: the
+    flat kernels read a stored zero where the canvas form reads its halo."""
+    from hpddm_tpu_torch.ops.spmv import spmm_dia_canvas
+
+    state = grid_ops[0]
+    A = dataclasses.replace(state.A, values=state.A.values.to(dtype))
+    assert A.canvas_hw is not None
+    x = torch.as_tensor(np.random.default_rng(mu).normal(
+        size=(state.dec.S, A.n_max, mu)), device="cuda").to(dtype)
+    n1, n2 = kmod.launches, kmod.spmm_launches
+    y = spmm(A, x)
+    assert (kmod.launches - n1, kmod.spmm_launches - n2) == \
+        ((1, 0) if mu == 1 else (0, 1))
+    assert torch.equal(y, spmm_dia_canvas(A, x))
+
+
+@pytest.mark.parametrize("mu", [1, 3])
+def test_grid_exchange_and_gmv_on_card_match_cpu(grid_ops, mu):
+    """The slab exchange on the card equals its CPU result bitwise (the
+    same elementwise adds), and the gmv through B1/B2 equals the CPU's
+    canvas form."""
+    cu, cpu = grid_ops
+    assert cu.dec.grid is not None
+    x = np.random.default_rng(7).normal(size=(cu.dec.S, cu.dec.n_max, mu))
+    xc, xh = torch.as_tensor(x, device="cuda"), torch.as_tensor(x)
+    assert torch.equal(exchange(cu.dec, xc).cpu(), exchange(cpu.dec, xh))
+    assert torch.equal(gmv(cu, xc).cpu(), gmv(cpu, xh))

@@ -33,26 +33,33 @@ CORRECTIONS = ["deflated", "additive", "balanced"]
 
 
 def jax_state_arrays(state):
-    """Flatten a hpddm_tpu SchwarzState (DIA or ELL, inv or banded, dense
-    direct coarse) to the numpy dict of interop.state_from_numpy."""
+    """Flatten a hpddm_tpu SchwarzState (DIA or ELL, inv or banded, a
+    direct coarse solve, the grid plan and canvas where attached) to the
+    numpy dict of interop.state_from_numpy."""
     dec = state.dec
     out = {k: np.asarray(getattr(dec, k)) for k in (
         "n_loc", "d", "if_idx", "if_gid", "if_mask", "ov_mask", "mult",
         "partners", "inv_map", "is_if")}
     out.update({k: getattr(dec, k) for k in interop.DEC_INT_KEYS})
     out["sub_shifts"] = dec.sub_shifts
+    if getattr(dec, "grid", None) is not None:
+        g = dec.grid
+        out["grid"] = {k: getattr(g, k) for k in (
+            "nbr", "sxw", "syw", "onehot", "H", "W", "t", "S", "gx", "gy",
+            "regular", "sxw_s", "syw_s")}
     out["A_values"] = np.asarray(state.A.values)
     if hasattr(state.A, "cols"):                         # BatchedELL
         out["A_cols"] = np.asarray(state.A.cols)
     else:
         out["A_offsets"] = state.A.offsets
+        out["A_canvas_hw"] = state.A.canvas_hw
     solver = state.solver
     if hasattr(solver, "Dinv"):                          # BandedSolver
         out.update({k: np.asarray(getattr(solver, k)) for k in (
             "Dinv", "cl", "cu", "idx_fwd", "msk_fwd", "idx_inv", "msk_inv")})
         out.update(wy_max=solver.wy_max, wx_max=solver.wx_max,
                    cw=solver.cw)
-    else:
+    elif solver is not None:
         out["factor"] = np.asarray(solver.factor)
     out["variant"] = state.variant
     out["bc"] = None if state.bc is None else np.asarray(state.bc)
@@ -201,10 +208,11 @@ def test_unported_branches_raise(port_setup):
     with pytest.raises(NotImplementedError, match="local_solver"):
         sz.Schwarz(gen.mats, gen.neighbors, gen.mappings, d=gen.d,
                    options=Options(local_solver="lu"), device="cpu").build()
-    with pytest.raises(NotImplementedError, match="bsr"):
+    with pytest.raises(NotImplementedError, match="'bsr'.*slice 3d"):
         sch = sz.Schwarz(gen.mats, gen.neighbors, gen.mappings, d=gen.d,
                          options=Options(schwarz_coarse_correction="deflated",
-                                         coarse_assembly="bsr"),
+                                         coarse_assembly="bsr",
+                                         level_2_tol=1e-2),
                          device="cpu")
         sch.build()
     with pytest.raises(NotImplementedError, match="cheby.*5d"):
