@@ -83,7 +83,13 @@ Phases (any failure exits non-zero before the last line is printed):
    calls 0), its time, nonzeros per second, share of the bound and
    device operations, the SpMM and three exchanges back to back (slab,
    plain general, B5), B1 and B2 (mu=4, 8) against the plain canvas form
-   (bitwise), the slab exchange within 1e-13 of the general one;
+   (bitwise), the slab exchange within 1e-13 of the general one; at
+   2048x2048/16 the gmv of four right-hand sides through its RHS-leading
+   branch (a chain: B3 launches, no B2, plain-version calls 0), B3 at mu=2,
+   3, 4 against its plain version and the plain canvas form and the gmv
+   against the trailing-mu path (bitwise), and its time against the
+   trailing-mu path (B2 + the permuted slab exchange) and the per-group
+   scan forms;
 15. flagship512 (examples/flagship.py: generate_uniform(16, 512, 512),
    contrast-1e4 channel, Jacobi-scaled, banded, Lanczos GenEO nu=8,
    block-sparse coarse assembly, deflated): f32 solved at tol 1e-6 then
@@ -93,17 +99,29 @@ Phases (any failure exits non-zero before the last line is printed):
    (``FLAGSHIP_ITS``), f32 within one of its f32 count with its GenEO
    run op by op; setup phases, solve, refine, time to true 1e-8 and peak
    memory; B1/B2 launches (B2 in the bsr assembly, mu=8), plain-version
-   calls 0, B1 and B2 at mu=8 against the plain canvas form (bitwise).
+   calls 0, B1 and B2 at mu=8 against the plain canvas form (bitwise);
+16. ladder256 (examples/ladder.py: generate_uniform(256, 2048, 2048),
+   n_max 16,900, the same channel, Jacobi-scaled once in f64 and cast for
+   f32, banded, Lanczos GenEO nu=8, block-sparse coarse assembly, N_c
+   2048, nested level-2 CG (tol 1e-2, at most 50) with a direct level 3,
+   deflated, flexible GMRES restart 40): f32 solved at tol 2e-3 then
+   refined on the host to 1e-10, f64 solved at tol 1e-8 alone; each must
+   reach a true relative residual <= 1e-8 within 80 GB, in coarse mode
+   bsr with a direct level 3; outer and inner iterations, setup phases,
+   solve, refine, time to true 1e-8, peak memory, B1/B2 launches,
+   plain-version calls 0, one coarse solve and one apply against an
+   outer iteration, B1 and B2 at mu=8 and B3 at mu=2, 3, 4 against their
+   plain versions (bitwise).
 
 Phase 5 drives the DIA path, phase 8 the unstructured path, phase 11 the
 multi-RHS path, phase 12 the banded grid path, phase 13 the banded
-unstructured path, phase 14 the grid gmv and phase 15 the flagship,
-each with its kernels' launch counts set to 0 just before it and read
-just after; comparisons and timings come after the counts are read.
-Each phase's wall seconds are printed. The script prints one JSON line
-with the kernels' results (time, plain time, bound, library time,
-launches, error), the card's name and power limit as nvidia-smi reports
-them, and last
+unstructured path, phase 14 the grid gmv (and its multi-RHS branch),
+phase 15 the flagship and phase 16 the ladder, each with its kernels'
+launch counts set to 0 just before it and read just after; comparisons
+and timings come after the counts are read. Each phase's wall seconds
+are printed. The script prints one JSON line with the kernels' results
+(time, plain time, bound, library time, launches, error), the card's name
+and power limit as nvidia-smi reports them, and last
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -404,7 +422,7 @@ def phase_card_scale():
           f"dia_spmm launches: setup {spmm_setup}, in all {spmm_launches}")
     check(plain_calls == 0, f"{plain_calls} plain-version calls on the card")
     print(f"  n_max {state.dec.n_max}, coarse size "
-          f"{state.coarse.E_inv.shape[0]}, DIA offsets {state.A.offsets}")
+          f"{state.coarse.N_c}, DIA offsets {state.A.offsets}")
     print("  setup seconds: " + ", ".join(f"{k} {v:.3f}"
                                           for k, v in timings.items()))
     print(f"  solve: {res.iterations} iterations, recomputed rel. residual "
@@ -415,7 +433,7 @@ def phase_card_scale():
     print(f"  dia_spmv launches: {after_setup} in setup, {per_solve} per "
           f"solve, {launches} in all; dia_spmm launches: {spmm_setup} in "
           f"setup (the coarse assembly's panel, mu = "
-          f"{state.coarse.E_inv.shape[0]}; its time is the 'coarse' setup "
+          f"{state.coarse.N_c}; its time is the 'coarse' setup "
           f"phase), {spmm_launches} in all; plain-version calls on the card "
           f"{plain_calls}")
 
@@ -714,7 +732,7 @@ def phase_unstructured_card(grid_gmv_ms):
     check(bool(res4.converged.all()) and max(rel4) <= 1e-5,
           f"unstructured card scale at mu=4: iterations "
           f"{res4.it_per_rhs.tolist()}, residual {max(rel4):.3e}")
-    n_c = state.coarse.E_inv.shape[0]
+    n_c = state.coarse.N_c
     for name, before, mid, counts in zip(("ell_spmv", "pexchange"),
                                          after_setup, after_mu1, by_mu):
         check(before > 0 and mid > before and all(
@@ -724,7 +742,7 @@ def phase_unstructured_card(grid_gmv_ms):
     check(plain_calls == 0, f"{plain_calls} plain-version calls on the card")
     print(f"  n_max {dec.n_max}, m_max {dec.m_max}, k_max {dec.k_max}, ELL "
           f"width {state.A.values.shape[1]}, coarse size "
-          f"{state.coarse.E_inv.shape[0]}")
+          f"{state.coarse.N_c}")
     print("  setup seconds: " + ", ".join(f"{k} {v:.3f}"
                                           for k, v in timings.items()))
     print(f"  solve: {res.iterations} iterations, recomputed rel. residual "
@@ -1013,7 +1031,9 @@ def count_plain_calls():
         return call
 
     for mods, name in (((kmod, spmv), "dia_spmv_reference"),
+                       ((kmod, spmv), "dia_spmm_muT_reference"),
                        ((spmv,), "spmm_dia_canvas"),
+                       ((spmv,), "spmm_dia_canvas_muT"),
                        ((ek, spmv), "ell_spmv_reference"),
                        ((ek,), "ell_spmv_payload_reference"),
                        ((pk,), "pexchange_reference")):
@@ -1101,7 +1121,7 @@ def phase_multi_card(card):
     csr = dia_csr(vals, offs)
     nnz = int(torch.count_nonzero(vals))
     recs = []
-    for mu in (4, state.coarse.E_inv.shape[0]):
+    for mu in (4, state.coarse.N_c):
         x = torch.as_tensor(rng.normal(size=(S, n, mu)), device="cuda")
         xT = x.transpose(1, 2).contiguous()
         ref = kmod.dia_spmv_reference(vals, x, offs)
@@ -1534,31 +1554,65 @@ def canvas_checks(A, rng, mus):
     return worst
 
 
-def canvas_record(name, A, mu, launches, err):
-    """The record of B1 (mu=1) or B2 on a canvas operator: the kernel, the
-    plain canvas form and torch.sparse.mm on the card with the L2 flushed,
-    and the bound (values, x and y once)."""
+def muT_checks(A, rng, mus):
+    """B3 (the RHS-leading panel) on a canvas operator at each mu against
+    its plain version and the plain canvas form, with ``torch.equal``.
+    Returns the largest difference."""
+    import torch
+    from hpddm_tpu_torch.ops import dia_spmv as kmod
+    from hpddm_tpu_torch.ops.spmv import spmm_dia_canvas_muT, spmm_muT
+
+    S, _, n = A.values.shape
+    worst = 0.0
+    for mu in mus:
+        xT = torch.as_tensor(rng.normal(size=(S, mu, n)),
+                             device="cuda").to(A.values.dtype)
+        y = spmm_muT(A, xT)
+        ref = kmod.dia_spmm_muT_reference(A.values, xT, A.offsets)
+        err = float((y - ref).abs().max())
+        same = (torch.equal(y, ref),
+                torch.equal(y, spmm_dia_canvas_muT(A, xT)))
+        print(f"  B3 on the canvas operator (S={S}, n={n}, mu={mu}, RHS "
+              f"leading, {dtype_name(A.values.dtype)}) vs its plain version "
+              f"and the plain canvas form: bitwise equal {same}, max|err| "
+              f"{err:.3e}")
+        check(all(same), f"B3 differs from its plain versions at mu={mu}")
+        worst = max(worst, err)
+    return worst
+
+
+def canvas_record(name, A, mu, launches, err, muT=False):
+    """The record of B1 (mu=1), B2 or, with ``muT``, B3 on a canvas
+    operator: the kernel, the plain canvas form and torch.sparse.mm on the
+    card with the L2 flushed, and the bound (values, x and y once)."""
     import torch
     from hpddm_tpu_torch.examples.library_ops import dia_csr
     from hpddm_tpu_torch.ops import dia_spmv as kmod
-    from hpddm_tpu_torch.ops.spmv import spmm_dia_canvas
+    from hpddm_tpu_torch.ops.spmv import spmm_dia_canvas, spmm_dia_canvas_muT
     from hpddm_tpu_torch.timing import cold_events_ms
 
     vals, offs = A.values, A.offsets
     S, _, n = vals.shape
     x = torch.ones((S, n, mu), dtype=vals.dtype, device="cuda")
-    if mu == 1:
+    if muT:
+        xT = x.transpose(1, 2).contiguous()
+        k_ms = cold_events_ms(lambda: kmod.dia_spmm_muT(vals, xT, offs))
+        p_ms = cold_events_ms(lambda: spmm_dia_canvas_muT(A, xT), reps=10)
+    elif mu == 1:
         xs = x[:, :, 0].contiguous()
         k_ms = cold_events_ms(lambda: kmod.dia_spmv(vals, xs, offs))
     else:
         k_ms = cold_events_ms(lambda: kmod.dia_spmm(vals, x, offs))
-    p_ms = cold_events_ms(lambda: spmm_dia_canvas(A, x), reps=10)
+    if not muT:
+        p_ms = cold_events_ms(lambda: spmm_dia_canvas(A, x), reps=10)
     nbytes = (vals.numel() + 2 * x.numel()) * vals.element_size()
     b_ms, b_by = bound(nbytes, 2 * int(torch.count_nonzero(vals)) * mu,
                        vals.dtype)
     lib = library_ms(dia_csr(vals, offs), x.reshape(-1, mu))
-    print(f"  {name} (S={S}, n={n}, mu={mu}, {dtype_name(vals.dtype)}): "
-          f"kernel {k_ms * 1e3:.2f} us, plain canvas form "
+    print(f"  {name} (S={S}, n={n}, mu={mu}"
+          + (", RHS leading" if muT else "")
+          + f", {dtype_name(vals.dtype)}): kernel {k_ms * 1e3:.2f} us, plain "
+          "canvas form "
           f"{p_ms * 1e3:.2f} us, torch.sparse.mm "
           + ("not timed" if lib is None else f"{lib * 1e3:.2f} us")
           + f" (L2 flushed); bound {b_ms * 1e3:.2f} us ({b_by}) = "
@@ -1566,9 +1620,57 @@ def canvas_record(name, A, mu, launches, err):
           "launches on the path")
     return kernel_record(
         name, "hpddm_tpu_torch/csrc/dia_spmv.cu",
+        "hpddm_tpu/ops/pallas_spmv.py:253" if muT else
         "hpddm_tpu/ops/pallas_spmv.py:98" if mu == 1 else
         "hpddm_tpu/ops/pallas_spmv.py:167", launches, err, k_ms, p_ms,
         b_ms, b_by, lib)
+
+
+def muT_gmv_path(state, rng, mu=4):
+    """The multi-RHS gmv's RHS-leading branch at mu on a canvas grid state
+    (phase 14): a chain of gmv calls (the path; B3 launches counted from
+    here, no B2, no plain-version call), then B3 against its plain version
+    and the plain canvas form (at mu and at 2 and 3), and the gmv against
+    the trailing-mu path, all with ``torch.equal``; then the times
+    (``bench_gmv.measure_muT``).
+    Returns (B3 launches on the path, largest difference)."""
+    import torch
+    from hpddm_tpu_torch.examples import bench_gmv
+    from hpddm_tpu_torch.ops import dia_spmv as kmod
+    from hpddm_tpu_torch.ops.spmv import spmm, spmm_dia_canvas_muT, spmm_muT
+    from hpddm_tpu_torch.parallel.ops import scaled_exchange
+    from hpddm_tpu_torch.precond.schwarz import gmv
+
+    plain = count_plain_calls()
+    A, dec = state.A, state.dec
+    x = torch.as_tensor(rng.normal(size=(dec.S, dec.n_max, mu)),
+                        device="cuda")
+    kmod.launches = kmod.spmm_launches = kmod.muT_launches = 0
+    plain[0] = 0
+    bench_gmv.chain_ms(state, x)
+    b3, b2 = kmod.muT_launches, kmod.spmm_launches - kmod.muT_launches
+    b1, plain_calls = kmod.launches, plain[0]
+    print(f"  gmv at mu={mu} (RHS leading): the chain launched dia_spmm_muT "
+          f"(B3) {b3} times, dia_spmm (B2) {b2}, dia_spmv {b1}; plain-version "
+          f"calls on the card {plain_calls}")
+    check(b3 > 0 and b2 == 0 and b1 == 0,
+          f"gmv at mu={mu}: B3 {b3}, B2 {b2}, B1 {b1} launches")
+    check(plain_calls == 0, f"{plain_calls} plain-version calls on the card")
+    err3 = muT_checks(A, rng, (2, 3))
+    xT = x.transpose(1, 2).contiguous()
+    yT = spmm_muT(A, xT)
+    ref = kmod.dia_spmm_muT_reference(A.values, xT, A.offsets)
+    canvas = spmm_dia_canvas_muT(A, xT)
+    y, trailing = gmv(state, x), scaled_exchange(dec, spmm(A, x))
+    err = max(err3, float((yT - ref).abs().max()),
+              float((y - trailing).abs().max()))
+    same = (torch.equal(yT, ref), torch.equal(yT, canvas),
+            torch.equal(y, trailing))
+    print(f"    B3 vs its plain version, vs the plain canvas form, gmv vs "
+          f"the trailing-mu path: bitwise equal {same}, max|err| {err:.3e}")
+    check(all(same), f"the RHS-leading gmv differs: {same}")
+    bench_gmv.report_muT(bench_gmv.measure_muT(state, x))
+    return b3, err
 
 
 def phase_gmv_cells():
@@ -1579,7 +1681,9 @@ def phase_gmv_cells():
     share of the bound and device operations, the SpMM and the three
     exchanges (slab, plain general, B5) back to back, B1/B2 against the
     plain canvas form (bitwise) and the slab exchange against the general
-    one. Returns the B1 record of the path."""
+    one; at 2048x2048/16 also the gmv of four right-hand sides through
+    its RHS-leading branch (``muT_gmv_path``). Returns the B1 and B3
+    records of the paths."""
     import torch
     from hpddm_tpu_torch.examples import bench_gmv
     from hpddm_tpu_torch.ops import dia_spmv as kmod
@@ -1618,8 +1722,11 @@ def phase_gmv_cells():
         check(d_gen <= 1e-13 and d_b5 == 0.0,
               f"exchanges disagree: slab {d_gen:.3e}, B5 {d_b5:.3e}")
         if rec is None:
-            rec = canvas_record("dia_spmv canvas GMV path", state.A, 1, b1,
-                                err)
+            rec = [canvas_record("dia_spmv canvas GMV path", state.A, 1, b1,
+                                 err)]
+            b3, err3 = muT_gmv_path(state, rng)
+            rec.append(canvas_record("dia_spmm_muT canvas gmv path mu=4",
+                                     state.A, 4, b3, err3, muT=True))
         del state, x, y, ex
     return rec
 
@@ -1673,6 +1780,102 @@ def phase_flagship():
     err = canvas_checks(st64.A, np.random.default_rng(15), (1, 8))
     return canvas_record("dia_spmm canvas flagship bsr assembly", st64.A, 8,
                          b2, err)
+
+
+def phase_ladder():
+    """Phase 16: ladder256 (examples/ladder.py: generate_uniform(256,
+    2048, 2048), contrast-1e4 channel, Jacobi-scaled once in f64 and cast
+    for f32, banded, Lanczos GenEO nu=8, block-sparse coarse assembly with
+    the nested level-2 CG and a direct level 3, deflated, flexible GMRES):
+    f32 solved at tol 2e-3 then refined on the host to 1e-10, f64 solved
+    at tol 1e-8 alone; each must reach a true relative residual <= 1e-8
+    within 80 GB of device memory, in mode bsr with a direct level 3;
+    outer and inner iterations, setup phases, solve, refine, time to true
+    1e-8 and peak memory; B1/B2 launches and plain-version calls (0); the
+    time of one coarse solve and one apply against an outer iteration;
+    B1 and B2 at mu=8 and B3 at mu=2, 3, 4 on the ladder's canvas operator
+    against their plain versions (bitwise). Returns the B1 and B2 records
+    of the path."""
+    import torch
+    from hpddm_tpu_torch.examples import bench_gmv, ladder
+    from hpddm_tpu_torch.ops import dia_spmv as kmod
+    from hpddm_tpu_torch.precond.schwarz import _coarse_solve_bsr, apply
+
+    print(f"phase 16: ladder256 (generate_uniform({ladder.LADDER_N}, "
+          f"{ladder.LADDER_NX}, {ladder.LADDER_NX}), contrast 1e4 channel, "
+          "Jacobi-scaled, banded, Lanczos GenEO nu=8, bsr coarse, level-2 CG "
+          "+ direct level 3, deflated)")
+    prob = ladder.problem()
+    print(f"  generate and scale (f64, once): {prob['seconds']:.3f} s")
+    plain = count_plain_calls()
+    kmod.launches = kmod.spmm_launches = kmod.muT_launches = 0
+    plain[0] = 0
+    r32, st32 = ladder.run(prob, np.float32)
+    del st32
+    r64, st64 = ladder.run(prob, np.float64)
+    b1, b2, b3 = (kmod.launches, kmod.spmm_launches - kmod.muT_launches,
+                  kmod.muT_launches)
+    plain_calls = plain[0]
+    del prob
+    for r in (r32, r64):
+        ladder.report(r)
+    print(f"  dia_spmv launches {b1}, dia_spmm {b2} (the bsr assembly's mu=8 "
+          f"panels), dia_spmm_muT {b3}; plain-version calls on the card "
+          f"{plain_calls}")
+    print(f"  f32 + refinement against f64: time to true 1e-8 "
+          f"{r32['time_to_1e-8_s']} s against {r64['time_to_1e-8_s']} s; "
+          f"setup {r32['setup_s']:.3f} s against {r64['setup_s']:.3f} s")
+    # the nested coarse solve's and the apply's wall time against an
+    # outer iteration (f64 state), each synchronized, best of 5
+    co = st64.coarse
+    rng = np.random.default_rng(16)
+    c = torch.as_tensor(rng.normal(size=(st64.dec.S, co.nu_max, 1)),
+                        device="cuda")
+    x = torch.as_tensor(rng.normal(size=(st64.dec.S, st64.dec.n_max, 1)),
+                        device="cuda")
+    walls = {}
+    for name, fn in (("coarse", lambda: _coarse_solve_bsr(co, c,
+                                                          return_its=True)),
+                     ("apply", lambda: apply(st64, x))):
+        out = fn()
+        best = float("inf")
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t)
+        walls[name] = (best, out)
+    it_s = r64["solve_s"] / r64["iterations"]
+    inner_its = walls["coarse"][1][1]
+    ops = bench_gmv.device_ops(lambda: _coarse_solve_bsr(co, c))
+    print(f"  f64: one coarse solve {walls['coarse'][0] * 1e3:.3f} ms "
+          f"({inner_its} inner iterations, random right-hand side; "
+          f"{ops} device operations, "
+          + ("not recorded" if ops is None else
+             f"{ops / max(inner_its, 1):.1f}")
+          + f" an inner iteration), one apply "
+          f"{walls['apply'][0] * 1e3:.3f} ms, an outer iteration "
+          f"{it_s * 1e3:.3f} ms (solve / iterations): the coarse solve is "
+          f"{100 * walls['coarse'][0] / it_s:.1f}% of it")
+    for r in (r32, r64):
+        check(r["true_relres"] <= 1e-8,
+              f"{r['dtype']}: true rel. residual {r['true_relres']:.3e}")
+        check(r["peak_bytes"] < 80e9,
+              f"{r['dtype']}: peak {r['peak_bytes'] / 1e9:.1f} GB")
+        check(r["mode"] == "bsr" and r["lvl3"] == "direct",
+              f"{r['dtype']}: coarse mode {r['mode']}, level 3 {r['lvl3']}")
+    check(b1 > 0 and b2 > 0, f"launches on the path: dia_spmv {b1}, "
+          f"dia_spmm {b2}")
+    check(plain_calls == 0, f"{plain_calls} plain-version calls on the card")
+    err = canvas_checks(st64.A, rng, (1, 8))
+    muT_checks(st64.A, rng, (2, 3, 4))
+    recs = [canvas_record("dia_spmv canvas ladder256 path", st64.A, 1, b1,
+                          err),
+            canvas_record("dia_spmm canvas ladder256 bsr assembly", st64.A,
+                          8, b2, err)]
+    del st64
+    return recs
 
 
 def main():
@@ -1753,10 +1956,12 @@ def main():
     banded += phase_banded_unstructured(unstr_cell, unstr)
     del unstr_cell
     lap("phase 13")
-    canvas = [phase_gmv_cells()]
+    canvas = phase_gmv_cells()
     lap("phase 14")
     canvas.append(phase_flagship())
     lap("phase 15")
+    canvas += phase_ladder()
+    lap("phase 16")
 
     kernels = {"kernels": [dia, *spmm, *unstr, *banded, *canvas]}
     print(f"wall {time.perf_counter() - t_start:.1f} s")

@@ -119,6 +119,52 @@ def measure(state, x):
     return out
 
 
+def measure_muT(state, x):
+    """The multi-RHS gmv on the panel x (S, n, mu), back to back between
+    CUDA events in one bracket (ms): gmv (its RHS-leading branch: B3 on
+    the (S, mu, n) panel, the scaling and ``grid_exchange_muT``) against
+    the trailing-mu path (B2, then the slab exchange through its
+    permutes), and the RHS-leading product and exchange fused and in
+    their per-group ``_scan`` forms."""
+    from hpddm_tpu_torch.ops.spmv import (spmm, spmm_dia_canvas_muT_scan,
+                                          spmm_muT)
+    from hpddm_tpu_torch.parallel.grid import (grid_exchange_muT,
+                                               grid_exchange_muT_scan)
+    from hpddm_tpu_torch.parallel.ops import exchange, scaled_exchange
+    from hpddm_tpu_torch.precond.schwarz import gmv
+    from hpddm_tpu_torch.timing import events_ms
+
+    A, dec = state.A, state.dec
+    xT = x.transpose(1, 2).contiguous()
+    d = dec.d[:, None, :]
+    return dict(
+        mu=x.shape[-1],
+        gmv_ms=events_ms(lambda: gmv(state, x)),
+        trailing_ms=events_ms(lambda: scaled_exchange(dec, spmm(A, x))),
+        fused_ms=events_ms(lambda: grid_exchange_muT(
+            dec.grid, spmm_muT(A, xT) * d)),
+        scan_ms=events_ms(lambda: grid_exchange_muT_scan(
+            dec.grid, spmm_dia_canvas_muT_scan(A, xT, scale=dec.d))),
+        b3_ms=events_ms(lambda: spmm_muT(A, xT)),
+        b2_ms=events_ms(lambda: spmm(A, x)),
+        exchange_muT_ms=events_ms(lambda: grid_exchange_muT(dec.grid, xT)),
+        exchange_ms=events_ms(lambda: exchange(dec, x)),
+        gmv_ops=device_ops(lambda: gmv(state, x)))
+
+
+def report_muT(r):
+    print(f"  gmv at mu={r['mu']} (RHS leading: B3, scaling, mu-leading slab "
+          f"exchange) {r['gmv_ms'] * 1e3:.2f} us ({r['gmv_ops']} device "
+          f"operations) against the trailing-mu path (B2 + the permuted "
+          f"slab exchange) {r['trailing_ms'] * 1e3:.2f} us; RHS leading "
+          f"fused {r['fused_ms'] * 1e3:.2f} us, in the per-group scan forms "
+          f"{r['scan_ms'] * 1e3:.2f} us")
+    print(f"    B3 {r['b3_ms'] * 1e3:.2f} us, B2 {r['b2_ms'] * 1e3:.2f} us; "
+          f"slab exchange RHS leading {r['exchange_muT_ms'] * 1e3:.2f} us, "
+          f"trailing {r['exchange_ms'] * 1e3:.2f} us (back to back, best "
+          "of 5 x 20)")
+
+
 def report(S, N, r):
     ops = "not recorded" if r["gmv_ops"] is None else r["gmv_ops"]
     print(f"  {N}x{N}/{S}: gmv {r['gmv_ms'] * 1e3:.2f} us a call (chain of "
@@ -148,6 +194,9 @@ def main(argv=None):
           f"{state.A.canvas_hw}, slab plan t={state.dec.grid.t}; setup "
           f"{t:.2f} s")
     report(S, N, measure(state, x))
+    xm = torch.as_tensor(np.random.default_rng(1).normal(
+        size=(S, state.dec.n_max, 4)), device=state.dec.device)
+    report_muT(measure_muT(state, xm))
     return 0
 
 

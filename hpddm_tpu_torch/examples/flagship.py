@@ -127,7 +127,7 @@ def run(dtype, S=FLAGSHIP_N, N=FLAGSHIP_NX, device="cuda"):
     solve_s, res = timed_solve(state, f, sch.opt)
     out = dict(dtype=np.dtype(dtype).name, iterations=int(res.iterations),
                setup_s=setup_s, phases=phases, solve_s=solve_s,
-               n_max=sch.n_max, coarse=int(state.coarse.E_inv.shape[0]),
+               n_max=sch.n_max, coarse=state.coarse.N_c,
                converged=bool(res.converged.all()),
                solve_relres=true_relres(mats, f, state.dec, res.x))
     if f32:

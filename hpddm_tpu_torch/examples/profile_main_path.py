@@ -77,7 +77,7 @@ def main(argv=None):
     f = torch.as_tensor(f, device="cuda")
     dec = state.dec
     print(f"problem: {args.model} {N}x{N}, S={S}, n_max={dec.n_max}, m_max={dec.m_max}, "
-          f"coarse {state.coarse.E_inv.shape[0]}; setup "
+          f"coarse {state.coarse.N_c}; setup "
           + ", ".join(f"{k} {v:.3f} s" for k, v in sch.timings.items()))
 
     x = scaled_exchange(dec, torch.randn(S, dec.n_max, 1, device="cuda",

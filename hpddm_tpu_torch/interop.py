@@ -26,9 +26,17 @@ Keys of ``arrays`` (numpy arrays unless stated):
   ``Dinv``, ``cl``, ``cu``, ``idx_fwd``, ``msk_fwd``, ``idx_inv``,
   ``msk_inv`` (the JAX package's ``BandedSolver`` arrays) and ints
   ``wy_max``, ``wx_max``, ``cw``;
-* coarse space (optional; absent for one level): ``Z``, ``E_inv``,
-  ``nu_loc``; int ``nu_max``; str ``correction`` (a direct coarse solve,
-  whether E was assembled dense or block-sparse);
+* coarse space (optional; absent for one level): ``Z``, ``E_inv`` (None
+  in ``bsr`` mode), ``nu_loc``; int ``nu_max``; str ``correction``; and,
+  for the nested modes of the level-2 options, str ``mode`` (``direct``
+  where absent), the scalars ``inner_tol``, ``inner_max_it``, ``method``,
+  ``restart``, ``prec``, ``lvl3``, ``l3_tol``, ``l3_max_it``, the arrays
+  (each optional) ``E``, ``E2_inv``, ``Z2``, ``E2``, ``Eloc_inv``,
+  ``loc_idx``, ``agg_oh``, ``Eb_diag``, ``Eb_nbr``, ``Eb_diag_inv`` and
+  ``nbr_oh`` (the JAX package's (S, K, S+1) one-hot of the neighbour
+  blocks, carried as the port's gather index ``nbr_idx``), and the
+  levels-4+ tuples ``chain_Z``, ``chain_E``, ``chain_inv`` (arrays),
+  ``chain_modes``, ``chain_tols``, ``chain_max_its``;
 * ``variant`` (str) and ``bc`` (array or None).
 """
 
@@ -51,6 +59,12 @@ from hpddm_tpu_torch.parallel.pexchange import build_plan
 from hpddm_tpu_torch.precond.schwarz import CoarseState, SchwarzState
 
 DEC_INT_KEYS = ("S", "n_max", "m_max", "n_if", "n_global", "k_max")
+# CoarseState fields beyond the direct solve's
+COARSE_ARRAYS = ("E", "E2_inv", "Z2", "E2", "Eloc_inv", "agg_oh", "Eb_diag",
+                 "Eb_nbr", "Eb_diag_inv")
+COARSE_SCALARS = ("mode", "inner_tol", "inner_max_it", "method", "restart",
+                  "prec", "lvl3", "l3_tol", "l3_max_it")
+COARSE_CHAIN = ("chain_Z", "chain_E", "chain_inv")
 
 
 def state_from_numpy(arrays: Dict[str, Any], device=DEFAULT,
@@ -70,11 +84,15 @@ def state_from_numpy(arrays: Dict[str, Any], device=DEFAULT,
     def i(key):
         return t(key, torch.int64)
 
-    def kept(key):
+    def kept_array(a):
         # local factors and coarse arrays held in a lower precision than
         # the operator (the JAX package's mixed precision) keep it
-        low = as_torch_dtype(np.asarray(arrays[key]).dtype)
-        return t(key, low if low.itemsize < dtype.itemsize else dtype)
+        low = as_torch_dtype(np.asarray(a).dtype)
+        return torch.as_tensor(np.array(a), device=device).to(
+            low if low.itemsize < dtype.itemsize else dtype)
+
+    def kept(key):
+        return kept_array(arrays[key])
 
     def b(key):
         return t(key, torch.bool)
@@ -109,10 +127,23 @@ def state_from_numpy(arrays: Dict[str, Any], device=DEFAULT,
                        canvas_hw=None if hw is None else tuple(map(int, hw)))
     coarse = None
     if arrays.get("Z") is not None:
+        def opt(key, conv):
+            return None if arrays.get(key) is None else conv(key)
+        extra = {k: opt(k, kept) for k in COARSE_ARRAYS}
+        extra.update({k: arrays[k] for k in COARSE_SCALARS if k in arrays})
+        extra.update({k: tuple(kept_array(a) for a in arrays[k])
+                      for k in COARSE_CHAIN if k in arrays})
+        extra.update({k: tuple(arrays[k]) for k in (
+            "chain_modes", "chain_tols", "chain_max_its") if k in arrays})
+        if arrays.get("nbr_oh") is not None:
+            extra["nbr_idx"] = torch.as_tensor(
+                np.argmax(np.asarray(arrays["nbr_oh"]), axis=-1),
+                device=device)
         coarse = CoarseState(
-            Z=kept("Z"), E_inv=kept("E_inv"),
-            nu_loc=t("nu_loc", torch.int32),
-            nu_max=int(arrays["nu_max"]), correction=str(arrays["correction"]))
+            Z=kept("Z"), E_inv=opt("E_inv", kept),
+            nu_loc=t("nu_loc", torch.int32), loc_idx=opt("loc_idx", i),
+            nu_max=int(arrays["nu_max"]), correction=str(arrays["correction"]),
+            **extra)
     if arrays.get("Dinv") is not None:
         solver = BandedSolver(
             Dinv=kept("Dinv"), cl=kept("cl"), cu=kept("cu"),

@@ -26,9 +26,11 @@ import torch.nn.functional as F
 
 # launches of the CUDA kernels since the last reset (plain-version calls on
 # CPU tensors are not counted): ``launches`` by ``dia_spmv`` (B1),
-# ``spmm_launches`` by ``dia_spmm`` and ``dia_spmm_muT`` (B2/B3)
+# ``spmm_launches`` by ``dia_spmm`` and ``dia_spmm_muT`` (B2/B3), and of
+# those ``muT_launches`` by ``dia_spmm_muT`` (B3)
 launches = 0
 spmm_launches = 0
+muT_launches = 0
 
 MAX_DIAGS = 32                # DIA_MAX_DIAGS of csrc/dia_spmv.cu
 MAX_PANEL = 2 ** 31           # one subdomain's x, n * mu, holds fewer elements
@@ -125,7 +127,7 @@ def _dia_spmm(name: str, vals: torch.Tensor, x: torch.Tensor,
               offsets: Sequence[int], mu_leading: bool) -> torch.Tensor:
     """Launch the SpMM kernel on x (S, n, mu), or (S, mu, n) when
     mu_leading."""
-    global spmm_launches
+    global spmm_launches, muT_launches
     S, nd, n = vals.shape if vals.dim() == 3 else (0, 0, 0)
     mu = x.shape[1 if mu_leading else -1] if x.dim() == 3 else 0
     _checked(name, vals, x, offsets, (S, mu, n) if mu_leading else (S, n, mu))
@@ -140,6 +142,7 @@ def _dia_spmm(name: str, vals: torch.Tensor, x: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed, cudaError {err}")
     spmm_launches += 1
+    muT_launches += int(mu_leading)
     return y
 
 

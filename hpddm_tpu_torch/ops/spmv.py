@@ -13,8 +13,11 @@
   that the canvas form reads zero padding exactly where the flat form
   reads a stored zero, so for finite x the two compute the same sums in
   the same order, bitwise, and B1/B2 compute them in one launch where a
-  torch canvas form takes about two per diagonal. The plain canvas form
-  (``spmm_dia_canvas``) stays as the parity reference.
+  torch canvas form takes about two per diagonal. The plain canvas forms
+  (``spmm_dia_canvas``, ``spmm_dia_canvas_muT``) stay as the parity
+  references. ``spmm_muT`` takes a panel with the right-hand-side axis
+  leading (B3, ``dia_spmm_muT``, on the card), for ``gmv``'s multi-RHS
+  grid branch.
 * ELL: a gather and a sum over each row's slots of the slot-major batch.
   Every ELL product on a CUDA tensor, any mu, goes through
   the hand-written kernel (ops/ell_spmv.py) with the batch's payload, as
@@ -22,7 +25,8 @@
   (``hpddm_tpu/ops/spmv.py:193-196``).
 * Dense: a batched matmul.
 
-All operate on a batch x: (S, n_max, mu).
+All operate on a batch x: (S, n_max, mu), the ``_muT`` forms on xT
+(S, mu, n_max).
 """
 
 from __future__ import annotations
@@ -31,7 +35,8 @@ import torch
 import torch.nn.functional as F
 
 from hpddm_tpu_torch.core.formats import BatchedDense, BatchedDIA, BatchedELL
-from hpddm_tpu_torch.ops.dia_spmv import (dia_spmm, dia_spmv,
+from hpddm_tpu_torch.ops.dia_spmv import (dia_spmm, dia_spmm_muT,
+                                          dia_spmm_muT_reference, dia_spmv,
                                           dia_spmv_reference)
 from hpddm_tpu_torch.ops.ell_spmv import ell_spmv, ell_spmv_reference
 
@@ -65,21 +70,51 @@ def spmm_dia_canvas(A: BatchedDIA, x: torch.Tensor) -> torch.Tensor:
     the canvas row seams (``Schwarz.set_grid_geometry`` checks); a
     non-stencil offset pattern takes the flat form. ``spmm`` does not
     call it: it is the reference that the flat path is held to."""
+    if dia_canvas_moves(A.offsets, A.canvas_hw[1]) is None:
+        return spmm_dia(A, x)
+    return spmm_dia_canvas_muT(A, x.permute(0, 2, 1)) \
+        .permute(0, 2, 1).contiguous()
+
+
+def spmm_dia_canvas_muT(A: BatchedDIA, xT: torch.Tensor) -> torch.Tensor:
+    """Plain canvas form with the right-hand-side axis leading: xT (S, mu,
+    n) -> (S, mu, n) (``hpddm_tpu/ops/spmv.py:115``). ``spmm_muT`` does not
+    call it: it is the reference that B3 on a canvas operator is held
+    to."""
     H, Wd = A.canvas_hw
     moves = dia_canvas_moves(A.offsets, Wd)
     if moves is None:
-        return spmm_dia(A, x)
+        return dia_spmm_muT_reference(A.values, xT, A.offsets)
     S, k, n = A.values.shape
-    mu = x.shape[-1]
+    mu = xT.shape[1]
     vc = A.values.reshape(S, k, H, Wd)
-    xc = x.permute(0, 2, 1).reshape(S, mu, H, Wd)
+    xc = xT.reshape(S, mu, H, Wd)
     xp = F.pad(xc, (1, 1, 1, 1))
     out = xc.new_zeros((S, mu, H, Wd),
-                       dtype=torch.result_type(A.values, x))
+                       dtype=torch.result_type(A.values, xT))
     for ki, (di, dj) in enumerate(moves):
         out = out + vc[:, ki, None] * \
             xp[:, :, 1 + di: 1 + di + H, 1 + dj: 1 + dj + Wd]
-    return out.reshape(S, mu, n).permute(0, 2, 1).contiguous()
+    return out.reshape(S, mu, n)
+
+
+def spmm_dia_canvas_muT_scan(A: BatchedDIA, xT: torch.Tensor, pair: int = 2,
+                             scale=None) -> torch.Tensor:
+    """The RHS-leading product in groups of ``pair`` right-hand sides, each
+    scaled by ``scale`` (S, n) where given: the JAX package's ``lax.scan``
+    form (``hpddm_tpu/ops/spmv.py:150``), which it takes at mu >= 3 on large
+    panels to keep a TPU accumulator from spilling. Each group goes
+    through ``spmm_muT`` (B3 on the card), so its sums are the fused
+    form's; ``gmv`` takes the fused form, and the smoke times both."""
+    S, mu, n = xT.shape
+    if mu <= pair or mu % pair:
+        y = spmm_muT(A, xT)
+        return y if scale is None else y * scale[:, None, :]
+    y = torch.empty_like(xT)
+    for g in range(0, mu, pair):
+        ym = spmm_muT(A, xT[:, g: g + pair])
+        y[:, g: g + pair] = ym if scale is None else ym * scale[:, None, :]
+    return y
 
 
 def spmm_ell(A: BatchedELL, x: torch.Tensor) -> torch.Tensor:
@@ -103,3 +138,11 @@ def spmm(A, x: torch.Tensor) -> torch.Tensor:
     if isinstance(A, BatchedDense):
         return spmm_dense(A, x)
     raise TypeError(f"unsupported matrix type {type(A)}")
+
+
+def spmm_muT(A: BatchedDIA, xT: torch.Tensor) -> torch.Tensor:
+    """The DIA product of a panel with the right-hand-side axis leading:
+    xT (S, mu, n) -> (S, mu, n), through B3 (``dia_spmm_muT``) on the card
+    and its plain version on the CPU; a canvas operator takes the flat
+    sums, as ``spmm``."""
+    return dia_spmm_muT(A.values, xT.contiguous(), A.offsets)

@@ -16,7 +16,9 @@ canvas of flat positions, into one index map: a call is one gather of the
 eight contributions and the adds of the composition, in the JAX package's
 default order ("hybrid", ``grid.py:342-355``). A panel of right-hand sides
 runs as a leading batch axis of the single-RHS canvas, the arithmetic of
-the JAX package's ``vmap`` (``grid.py:258-269``). The result equals the
+the JAX package's ``vmap`` (``grid.py:258-269``); ``grid_exchange_muT``
+takes a panel with the right-hand-side axis leading through the same map
+laid out for it, without the permutes. The result equals the
 JAX package's value for value (only the sign of a zero may differ where
 the JAX package adds a zero to -0.0) and the general exchange's to about
 1e-13 (``tests/test_grid_exchange.py:37-45``).
@@ -72,6 +74,11 @@ class GridPlan:
         """The neighbour contributions' gather map (``_gather_map``), built
         on the first exchange."""
         return _gather_map(self)
+
+    @functools.cached_property
+    def muT_index(self):
+        """The maps of ``_muT_map`` by panel width."""
+        return {}
 
 
 def build_grid_plan(boxes, device=DEFAULT) -> Optional[GridPlan]:
@@ -235,16 +242,60 @@ def _gather_map(plan: GridPlan):
             tuple(tuple(p.shape[1:]) for p in parts))
 
 
+def _muT_map(plan: GridPlan, mu: int):
+    """(index, valid, sizes): the gather map of ``_gather_map`` for a panel
+    (S, mu, H*W) with the right-hand-side axis leading, each of the eight
+    contributions laid out (S, mu, h, w). Built once per mu."""
+    cache = plan.muT_index
+    if mu not in cache:
+        S, HW = plan.S, plan.H * plan.W
+        idx, valid, shapes = plan.index
+        m = torch.arange(mu, device=idx.device)[None, :, None]
+        parts_i, parts_v, sizes, o = [], [], [], 0
+        for shp in shapes:
+            size = S * shp[1] * shp[2]
+            ip = idx[o: o + size].view(S, 1, -1)
+            parts_i.append(((ip // HW) * mu + m) * HW + ip % HW)
+            parts_v.append(valid[o: o + size].view(S, 1, -1)
+                           .expand(-1, mu, -1))
+            sizes.append(size * mu)
+            o += size
+        cache[mu] = (torch.cat([p.reshape(-1) for p in parts_i]),
+                     torch.cat([p.reshape(-1) for p in parts_v]),
+                     tuple(sizes))
+    return cache[mu]
+
+
+def _add_contributions(c: torch.Tensor, parts, t: int) -> torch.Tensor:
+    """c plus the eight neighbour contributions in the JAX package's
+    "hybrid" order: corners and the E/W strips' end rows into the
+    full-width N/S strips, then c + n on the top band, (c + w) + e on the
+    middle rows and c + s on the bottom band. c: a canvas (B1, B2, H, W)
+    whose two leading axes are batch axes (right-hand sides and
+    subdomains, in either order); parts (B1, B2, h, w), updated in place.
+    Returns a new contiguous tensor."""
+    H, W = c.shape[-2:]
+    e, w, n, s, ne, nw, se, sw = parts
+    n[..., W - t:] += ne + e[..., :t, :]
+    n[..., :t] += nw + w[..., :t, :]
+    s[..., W - t:] += se + e[..., H - t:, :]
+    s[..., :t] += sw + w[..., H - t:, :]
+    out = c.clone(memory_format=torch.contiguous_format)
+    out[..., :t, :] += n
+    out[..., t:H - t, :t] += w[..., t:H - t, :]
+    out[..., t:H - t, W - t:] += e[..., t:H - t, :]
+    out[..., H - t:, :] += s
+    return out
+
+
 def grid_exchange(plan: GridPlan, x: torch.Tensor) -> torch.Tensor:
     """Sum-reduce duplicated unknowns on a uniform grid decomposition.
 
     x: (S, n_max, mu) with n_max >= H*W. Each right-hand side is an
     (S, H, W) canvas; the panel is a leading axis (mu, S, H, W). The eight
     neighbour contributions come from one gather (the plan's index map),
-    then the JAX package's "hybrid" composition adds them in its order:
-    corners and the E/W strips' end rows into the full-width N/S strips,
-    then x + n on the top band, (x + w) + e on the middle rows and x + s
-    on the bottom band. Returns a new contiguous (S, n_max, mu) tensor."""
+    then ``_add_contributions`` adds them in the JAX package's order.
+    Returns a new contiguous (S, n_max, mu) tensor."""
     S, n_max, mu = x.shape
     H, W, t = plan.H, plan.W, plan.t
     idx, valid, shapes = plan.index
@@ -257,19 +308,49 @@ def grid_exchange(plan: GridPlan, x: torch.Tensor) -> torch.Tensor:
         size = S * shp[1] * shp[2]
         parts.append(g[:, o: o + size].view(mu, *shp))
         o += size
-    e, w, n, s, ne, nw, se, sw = parts
-    n[..., W - t:] += ne + e[:, :, :t]
-    n[..., :t] += nw + w[:, :, :t]
-    s[..., W - t:] += se + e[:, :, H - t:]
-    s[..., :t] += sw + w[:, :, H - t:]
-    out = c.clone(memory_format=torch.contiguous_format)
-    out[:, :, :t] += n
-    out[:, :, t:H - t, :t] += w[:, :, t:H - t]
-    out[:, :, t:H - t, W - t:] += e[:, :, t:H - t]
-    out[:, :, H - t:] += s
-    out = out.reshape(mu, S, H * W)
+    out = _add_contributions(c, parts, t).reshape(mu, S, H * W)
     if n_max > H * W:
         out = torch.cat([out, xb[:, :, H * W:]], dim=2)
     if mu == 1:
         return out.reshape(S, n_max, 1)
     return out.permute(1, 2, 0).contiguous()
+
+
+def grid_exchange_muT(plan: GridPlan, xT: torch.Tensor) -> torch.Tensor:
+    """The exchange of a panel with the right-hand-side axis leading:
+    xT (S, mu, n_max) -> (S, mu, n_max) (``hpddm_tpu/parallel/grid.py:381``,
+    a ``vmap`` of the single-RHS exchange over the right-hand sides).
+    ``grid_exchange``'s body on an (S, mu, H, W) canvas, without its two
+    permutes: one gather through the plan's map laid out for this panel
+    (``_muT_map``), then the same adds, so each right-hand side gets the
+    single-RHS exchange's values. Returns a new contiguous tensor."""
+    S, mu, n_max = xT.shape
+    H, W, t = plan.H, plan.W, plan.t
+    idx, valid, sizes = _muT_map(plan, mu)
+    c = xT[:, :, : H * W].reshape(S, mu, H, W)
+    g = torch.where(valid, c.reshape(-1).index_select(0, idx),
+                    c.new_zeros(()))
+    _, _, shapes = plan.index
+    parts, o = [], 0
+    for shp, size in zip(shapes, sizes):
+        parts.append(g[o: o + size].view(S, mu, shp[1], shp[2]))
+        o += size
+    out = _add_contributions(c, parts, t).reshape(S, mu, H * W)
+    if n_max > H * W:
+        out = torch.cat([out, xT[:, :, H * W:]], dim=2)
+    return out
+
+
+def grid_exchange_muT_scan(plan: GridPlan, xT: torch.Tensor) -> torch.Tensor:
+    """The RHS-leading exchange one right-hand side at a time: the JAX
+    package's ``lax.scan`` form (``hpddm_tpu/parallel/grid.py:391``), which
+    it takes where its batched form re-tiles on the TPU. The same values
+    as ``grid_exchange_muT``; ``gmv`` takes the batched form, and the smoke
+    times both."""
+    S, mu, n = xT.shape
+    if mu == 1:
+        return grid_exchange_muT(plan, xT)
+    y = torch.empty_like(xT)
+    for m in range(mu):
+        y[:, m] = grid_exchange(plan, xT[:, m].reshape(S, n, 1))[:, :, 0]
+    return y

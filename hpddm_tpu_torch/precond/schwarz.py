@@ -1,4 +1,4 @@
-"""One- and two-level overlapping Schwarz preconditioners, main-path slice.
+"""Overlapping Schwarz preconditioners with multilevel coarse solves.
 
 Counterpart of ``hpddm_tpu/precond/schwarz.py``. The preconditioner state
 is a small dataclass of batched tensors (leading axis = subdomains) and the
@@ -8,10 +8,15 @@ runtime methods are plain functions over it:
   (HPDDM_schwarz.hpp:527-612) and the deflated/additive/balanced coarse
   corrections,
 * ``gmv``: global SpMV = local SpMM + POU-scaled sum-exchange
-  (HPDDM_schwarz.hpp:726-747),
-* ``deflation``: coarse correction Z E^-1 Z^T D (HPDDM_schwarz.hpp:
-  1602-1622) with a replicated, direct (inverted) coarse matrix
-  E = Z^T A Z,
+  (HPDDM_schwarz.hpp:726-747); a panel of right-hand sides on a canvas
+  grid operator runs with the right-hand-side axis leading,
+* ``deflation``: coarse correction Z E^-1 Z^T D x (HPDDM_schwarz.hpp:
+  1602-1622) with the coarse solve of the JAX package's three modes: a
+  replicated direct solve with the inverse of E = Z^T A Z (``direct``),
+  a nested Krylov solve on the dense E (``iterative``) or on its
+  neighbour blocks (``bsr``), with a level-3 aggregate deflation and
+  levels 4+ (the reference's InexactCoarseOperator recursion,
+  HPDDM_inexact_coarse_operator.hpp:741-778,1328),
 * ``compute_residual``: independent residual recomputation
   (HPDDM_schwarz.hpp:761-803).
 
@@ -21,12 +26,13 @@ canvas annotation of ``set_grid_geometry``, GenEO (the dense pencil, or
 shift-invert Lanczos with banded or ``inv``-preconditioned inner solves),
 ``inv`` or banded (block-tridiagonal, on grid boxes or through RCM) local
 factors and the Galerkin coarse operator, assembled dense or
-neighbour-block-sparse and inverted for a replicated direct solve. It
-puts everything on the card unless the caller passes ``device="cpu"``.
-The other setup branches of the JAX package (nested Krylov and
-multilevel coarse solves, FFT and Chebyshev local solvers, the
-interface-first layout) raise ``NotImplementedError`` naming their slice
-in ROADMAP.md.
+neighbour-block-sparse, inverted for a replicated direct solve or kept
+for the nested solves of the level-2 options (``level_2_*``, ``level_3_*``
+and ``level_4+``). It puts everything on the card unless the caller
+passes ``device="cpu"``. The other setup branches of the JAX package
+(FFT and Chebyshev local solvers, the interface-first layout, the
+matrix dumps) raise ``NotImplementedError`` naming their slice in
+ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -49,12 +55,16 @@ from hpddm_tpu_torch.ops.banded_solve import (BandedSolver,
                                               build_banded_solver,
                                               build_banded_solver_rcm)
 from hpddm_tpu_torch.ops.local_solve import LocalSolver, invert, promoted
-from hpddm_tpu_torch.ops.spmv import dia_canvas_moves, spmm
+from hpddm_tpu_torch.ops.spmv import dia_canvas_moves, spmm, spmm_muT
 from hpddm_tpu_torch.options import Options
 from hpddm_tpu_torch.parallel.decomposition import Decomposition
-from hpddm_tpu_torch.parallel.grid import build_grid_plan
+from hpddm_tpu_torch.parallel.grid import (build_grid_plan,
+                                           grid_exchange_muT)
 from hpddm_tpu_torch.parallel.ops import exchange, scaled_exchange
 from hpddm_tpu_torch.parallel.pexchange import build_plan
+from hpddm_tpu_torch.solvers.base import LinearOperator
+from hpddm_tpu_torch.solvers.cg import cg
+from hpddm_tpu_torch.solvers.gmres import gmres
 
 # dense Galerkin assembly memory cap: above it the coarse operator is
 # assembled block-sparse unless coarse_assembly=dense was asked for
@@ -75,15 +85,69 @@ def _not_ported(what: str, where: str) -> NotImplementedError:
 
 @dataclasses.dataclass(frozen=True)
 class CoarseState:
-    """Two-level coarse-space state with a replicated direct coarse solve
-    (the analogue of a main-process direct factorization,
-    HPDDM_coarse_operator_impl.hpp:1630)."""
+    """Two-level (GenEO or user) coarse-space state (the JAX package's
+    ``CoarseState``, ``hpddm_tpu/precond/schwarz.py:59-145``).
+
+    mode ``direct``: E_inv holds the inverse of E (the analogue of a
+    main-process direct factorization, HPDDM_coarse_operator_impl.hpp:1630).
+    mode ``iterative``: E is kept dense and each coarse solve is a nested
+    Krylov solve with the level-2 options, preconditioned by the
+    block-Jacobi inverse E_inv, by overlapping neighbour blocks
+    (Eloc_inv, loc_idx) or by nothing, plus the level-3 correction
+    (HPDDM_inexact_coarse_operator.hpp:741-778). mode ``bsr``: only E's
+    diagonal and neighbour blocks are kept (Eb_diag, Eb_nbr; the
+    reference's sparsity pattern 's', HPDDM_operator.hpp:378-562) and the
+    nested solve runs on them, E_inv is None. Level 3 (``lvl3``): direct
+    (E2_inv the inverse of E2 = Z2^H E Z2), ``cg`` (E2_inv its Jacobi
+    inverse, a Jacobi CG deflated by levels 4+, the ``chain_*`` tuples)
+    or ``none``.
+
+    ``its_log``: a list the nested solves append their iteration counts
+    to, where the caller sets one (``dataclasses.replace``); None by
+    default."""
     Z: torch.Tensor               # (S, n_max, nu_max) local deflation vectors
-    E_inv: torch.Tensor           # (N_c, N_c) inverse of E = Z^T A Z
+    # (N_c, N_c) inverse (direct) or block-Jacobi inverse (iterative);
+    # None (bsr)
+    E_inv: Optional[torch.Tensor]
     nu_loc: torch.Tensor          # (S,) int32, actual nu per subdomain
     nu_max: int
     correction: str               # 'deflated' | 'additive' | 'balanced'
-    mode: str = "direct"
+    mode: str = "direct"          # 'direct' | 'iterative' | 'bsr'
+    E: Optional[torch.Tensor] = None   # (N_c, N_c) coarse matrix (iterative)
+    inner_tol: float = 1.0e-2
+    inner_max_it: int = 50
+    method: str = "cg"            # level-2 Krylov method: 'cg' | 'gmres'
+    restart: int = 30
+    prec: str = "bj"              # 'bj' | 'ras' | 'asm' | 'none'
+    lvl3: str = "direct"          # 'direct' | 'cg' | 'none'
+    l3_tol: float = 1.0e-2
+    l3_max_it: int = 20
+    E2_inv: Optional[torch.Tensor] = None   # (n3, n3)
+    Z2: Optional[torch.Tensor] = None       # (N_c, n3) basis (iterative)
+    E2: Optional[torch.Tensor] = None       # (n3, n3), lvl3 'cg' only
+    Eloc_inv: Optional[torch.Tensor] = None  # (S, L, L) overlapping blocks
+    loc_idx: Optional[torch.Tensor] = None   # (S, L) coarse rows (iterative)
+    agg_oh: Optional[torch.Tensor] = None    # (S, nu_max, n3) basis (bsr)
+    Eb_diag: Optional[torch.Tensor] = None      # (S, nu, nu)
+    Eb_nbr: Optional[torch.Tensor] = None       # (S, K, nu, nu)
+    Eb_diag_inv: Optional[torch.Tensor] = None  # (S, nu, nu) block Jacobi
+    # (S, K) int64 neighbour subdomain of each block column, S where a
+    # subdomain has fewer than K neighbours: the gather index of the JAX
+    # package's one-hot ``nbr_oh`` (S, K, S+1), see ``_coarse_solve_bsr``
+    nbr_idx: Optional[torch.Tensor] = None
+    # levels 4+: entry j belongs to level 4+j (``Schwarz._build_chain``)
+    chain_Z: tuple = ()
+    chain_E: tuple = ()
+    chain_inv: tuple = ()
+    chain_modes: tuple = ()
+    chain_tols: tuple = ()
+    chain_max_its: tuple = ()
+    its_log: Optional[list] = None
+
+    @property
+    def N_c(self) -> int:
+        """The coarse size S * nu_max, whatever the mode."""
+        return self.Z.shape[0] * self.nu_max
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,8 +172,25 @@ def gmv(state: SchwarzState, x: torch.Tensor) -> torch.Tensor:
 
     Correct because the POU vanishes on each subdomain's artificial
     boundary, exactly where the local rows are incomplete
-    (HPDDM_schwarz.hpp:726-747)."""
-    return scaled_exchange(state.dec, spmm(state.A, x))
+    (HPDDM_schwarz.hpp:726-747).
+
+    A panel (mu > 1) on a canvas DIA operator with the slab exchange runs
+    with the right-hand-side axis leading, as the JAX package's multi-RHS
+    grid branch (``hpddm_tpu/precond/schwarz.py:169-216``): the SpMM on the
+    (S, mu, n) panel (``spmm_muT``: B3 on the card), the POU scaling, the
+    mu-leading slab exchange (``grid_exchange_muT``), one transpose in and
+    one out. The values are the trailing-mu path's: the same products and
+    sums per right-hand side. The JAX package's gate between this fused
+    form and its per-group ``_scan`` forms works around a TPU register
+    spill keyed on an environment variable; B3 reads the panel once for
+    every mu, so the port keeps no gate (ROADMAP, queue C, C2)."""
+    A, dec = state.A, state.dec
+    if (x.shape[-1] > 1 and isinstance(A, BatchedDIA)
+            and A.canvas_hw is not None and dec.grid is not None
+            and dia_canvas_moves(A.offsets, A.canvas_hw[1]) is not None):
+        yT = spmm_muT(A, x.transpose(1, 2)) * dec.d[:, None, :]
+        return grid_exchange_muT(dec.grid, yT).transpose(1, 2).contiguous()
+    return scaled_exchange(dec, spmm(A, x))
 
 
 def one_level_apply(state: SchwarzState, x: torch.Tensor) -> torch.Tensor:
@@ -126,28 +207,213 @@ def one_level_apply(state: SchwarzState, x: torch.Tensor) -> torch.Tensor:
     return exchange(dec, state.solver.solve(x))             # asm / osm
 
 
-def _coarse_solve(co: CoarseState, c: torch.Tensor) -> torch.Tensor:
-    """Solve E y = c on the replicated coarse problem: one small matmul
-    with the prefactorized inverse."""
-    if co.mode != "direct":
-        raise _not_ported(f"coarse mode {co.mode!r}",
-                          "ROADMAP queue A, slices 3 and 5")
-    return co.E_inv @ c.to(co.E_inv.dtype)
+def _defl_jacobi_cg(E: torch.Tensor, Jinv: torch.Tensor, rc: torch.Tensor,
+                    tol: float, max_it: int, defl) -> torch.Tensor:
+    """Jacobi-preconditioned CG on E w = rc (rc: (n, mu)), deflated by
+    ``defl = (Z_next, solve_next)`` when given: the preconditioner is then
+    Jinv + Z_next solve_next(Z_next^H r), the next coarser level's
+    correction. The recursion unit of the level-N chain
+    (``hpddm_tpu/precond/schwarz.py:283-321``); its ``while_loop`` is a
+    Python loop with one host read per iteration."""
+    def prec(r):
+        z = Jinv @ r
+        if defl is not None:
+            Zn, slv = defl
+            z = z + Zn @ slv(Zn.conj().T @ r)
+        return z
+
+    def dot(a, b):
+        return torch.sum(a.conj() * b, dim=0)
+
+    def colnorm(v):
+        return torch.sqrt(dot(v, v).real)
+
+    one = torch.ones((), dtype=rc.dtype, device=rc.device)
+    norm = colnorm(rc)
+    norm = torch.where(norm > 0, norm, one.real)
+    w = torch.zeros_like(rc)
+    r = rc
+    p = prec(rc)
+    rz = dot(rc, p)
+    it = 0
+    while it < max_it and bool(torch.any(colnorm(r) / norm > tol)):
+        Ep = E @ p
+        pq = dot(p, Ep)
+        alpha = rz / torch.where(torch.abs(pq) > 0, pq, one)
+        w = w + alpha * p
+        r = r - alpha * Ep
+        z = prec(r)
+        rz_new = dot(r, z)
+        p = z + (rz_new / torch.where(torch.abs(rz) > 0, rz, one)) * p
+        rz = rz_new
+        it += 1
+    return w
+
+
+def _solve_chain(co: CoarseState, j: int, rc: torch.Tensor) -> torch.Tensor:
+    """Solve the level-(4+j) system chain_E[j] w = rc, recursing down the
+    chain."""
+    if co.chain_modes[j] == "direct":
+        return co.chain_inv[j] @ rc
+    defl = None
+    if j + 1 < len(co.chain_modes):
+        defl = (co.chain_Z[j + 1], lambda r: _solve_chain(co, j + 1, r))
+    return _defl_jacobi_cg(co.chain_E[j], co.chain_inv[j], rc,
+                           co.chain_tols[j], co.chain_max_its[j], defl)
+
+
+def _solve_level3(co: CoarseState, rc: torch.Tensor) -> torch.Tensor:
+    """Solve the level-3 aggregate system E2 w = rc (rc: (n3, mu)):
+    ``direct`` with the prefactorized inverse, ``cg`` with the Jacobi CG
+    of the level-3 options, deflated by levels 4+ where they are set
+    (buildThree, HPDDM_inexact_coarse_operator.hpp:741-778,1328)."""
+    if co.lvl3 == "direct":
+        return co.E2_inv @ rc
+    defl = None
+    if len(co.chain_modes):
+        defl = (co.chain_Z[0], lambda r: _solve_chain(co, 0, r))
+    return _defl_jacobi_cg(co.E2, co.E2_inv, rc, co.l3_tol, co.l3_max_it,
+                           defl)
+
+
+def _nested_krylov(co: CoarseState, op: LinearOperator, b: torch.Tensor):
+    """The level-2 solve through the port's own Krylov stack with the
+    level-2 options: (x, iterations). The count goes to ``co.its_log``
+    where one is set."""
+    if co.method == "gmres":
+        res = gmres(op, b, tol=co.inner_tol, restart=co.restart,
+                    max_it=co.inner_max_it)
+    else:
+        res = cg(op, b, tol=co.inner_tol, max_it=co.inner_max_it)
+    if co.its_log is not None:
+        co.its_log.append(res.iterations)
+    return res.x, res.iterations
+
+
+def _coarse_solve(co: CoarseState, c: torch.Tensor,
+                  return_its: bool = False):
+    """Solve E y = c (c: (N_c, mu)) on the replicated coarse problem.
+
+    ``direct``: one small matmul with the prefactorized inverse.
+    ``iterative``: the nested solve of ``_nested_krylov`` on a (1, N_c,
+    mu) panel with no weight, preconditioned by the block-Jacobi inverse,
+    the overlapping neighbour blocks (``ras``: each block keeps its own
+    rows; ``asm``: the blocks' solutions added where they overlap) or
+    nothing, plus the level-3 correction Z2 E2^-1 Z2^H r
+    (``hpddm_tpu/precond/schwarz.py:353-408``). With ``return_its``:
+    (y, inner iterations), 0 for a direct solve."""
+    anchor = co.E_inv if co.E_inv is not None else co.E
+    cd = c.to(anchor.dtype)
+    if co.mode == "direct":
+        y = co.E_inv @ cd
+        return (y, 0) if return_its else y
+    E = co.E
+    N_c, mu = cd.shape
+
+    def prec3(r):
+        if co.prec == "none":
+            z = r
+        elif co.prec in ("ras", "asm"):
+            rp = torch.cat([r, r.new_zeros((1, mu))])
+            zl = torch.bmm(co.Eloc_inv, rp[co.loc_idx])      # (S, L, mu)
+            if co.prec == "ras":
+                z = zl[:, : co.nu_max, :].reshape(N_c, mu)
+            else:
+                z = torch.zeros_like(rp).index_add_(
+                    0, co.loc_idx.reshape(-1), zl.reshape(-1, mu))[:N_c]
+        else:                                                # block-Jacobi
+            z = co.E_inv @ r
+        if co.lvl3 != "none" and co.Z2 is not None:
+            z = z + co.Z2 @ _solve_level3(co, co.Z2.conj().T @ r)
+        return z
+
+    op = LinearOperator(gmv=lambda x: (E @ x[0])[None],
+                        apply=lambda x: prec3(x[0])[None])
+    x, its = _nested_krylov(co, op, cd[None])
+    return (x[0], its) if return_its else x[0]
+
+
+def _coarse_solve_bsr(co: CoarseState, c: torch.Tensor,
+                      return_its: bool = False):
+    """Nested Krylov solve on the block-sparse coarse problem
+    (``hpddm_tpu/precond/schwarz.py:411-487``). c: (S, nu, mu) block RHS.
+
+    The matvec is E_diag y + sum_j E_nbr[j] y_nbr(j) on the active slots,
+    as one batched product of each block row [E_diag | E_nbr] with the
+    stacked [y_s; y_nbr(s)]. The neighbour blocks are gathered by
+    ``nbr_idx`` from y padded with a zero block at index S, where the JAX
+    package multiplies by a one-hot (S, K, S+1): for finite y the values
+    are the same (one nonzero term per slot, and 0 * finite = 0); a
+    non-finite y stays in its own block here, where the one-hot product
+    spreads a NaN to every block. The preconditioner is block-Jacobi,
+    neighbour-block RAS (``ras`` and ``asm``: each block keeps its own
+    rows) or none, plus the level-3 correction through ``agg_oh``. The
+    products with the mask of active slots are skipped where every slot is
+    active (a product with 1 changes no value). With ``return_its``: (y,
+    inner iterations)."""
+    cd = c.to(co.Eb_diag.dtype)
+    S, nu, mu = cd.shape
+    K = co.Eb_nbr.shape[1]
+    act = (torch.arange(nu, device=cd.device)[None, :]
+           < co.nu_loc[:, None])[:, :, None]
+    act = None if bool(act.all()) else act.to(cd.dtype)
+
+    def masked(v):
+        return v if act is None else v * act
+
+    cd = masked(cd)
+    own = torch.arange(S, device=cd.device)[:, None]
+    rows = torch.cat([own, co.nbr_idx], dim=1)                # (S, K+1)
+    # block row s: [E_diag[s] | E_nbr[s, 0] | ... ], (S, nu, (K+1) nu)
+    Erow = torch.cat([co.Eb_diag[:, None], co.Eb_nbr], dim=1) \
+        .permute(0, 2, 1, 3).reshape(S, nu, (K + 1) * nu)
+
+    def blocks(y):
+        """[y_s; y_nbr(s, 0); ...]: (S, (K+1) nu, mu)."""
+        ypad = torch.cat([y, y.new_zeros((1, nu, mu))])
+        return ypad[rows].reshape(S, (K + 1) * nu, mu)
+
+    def matvec(y):
+        return masked(torch.bmm(Erow, blocks(y)))
+
+    agg = None
+    if co.lvl3 != "none" and co.E2_inv is not None:
+        agg = co.agg_oh.to(cd.dtype).reshape(S * nu, -1)     # (S nu, n3)
+
+    def prec(r):
+        if co.prec == "none":
+            z = r
+        elif co.prec in ("ras", "asm") and co.Eloc_inv is not None:
+            z = masked(torch.bmm(co.Eloc_inv, blocks(r))[:, :nu])
+        else:                                                # block-Jacobi
+            z = masked(torch.bmm(co.Eb_diag_inv, r))
+        if agg is not None:
+            # the basis unconjugated, as the JAX package's einsum
+            w3 = _solve_level3(co, agg.T @ masked(r).reshape(S * nu, mu))
+            z = z + masked((agg @ w3).reshape(S, nu, mu))
+        return z
+
+    x, its = _nested_krylov(co, LinearOperator(gmv=matvec, apply=prec), cd)
+    return (x, its) if return_its else x
 
 
 def deflation(state: SchwarzState, x: torch.Tensor) -> torch.Tensor:
     """Coarse correction out = Z E^-1 Z^T D x (HPDDM_schwarz.hpp:1602-1622).
     Z kept in another dtype than x (``Schwarz.build(dtype=...)``) is
-    promoted with x, as the JAX package's einsums promote it."""
+    promoted with x, as the JAX package's einsums promote it. In ``bsr``
+    mode the coarse right-hand side stays in (S, nu, mu) blocks."""
     co = state.coarse
     dec = state.dec
     mu = x.shape[-1]
     dx = dec.d[:, :, None] * x                               # D x
     Z = promoted(co.Z, dx)
     # coarse RHS c[(s, a)] = Z_s[:, a]^T (D x)_s -> (S, nu, mu)
-    c = torch.bmm(Z.conj().transpose(1, 2), promoted(dx, Z)).reshape(-1, mu)
-    y = _coarse_solve(co, c).to(x.dtype)                     # (N_c, mu)
-    y = y.reshape(-1, co.nu_max, mu)                         # (S, nu, mu)
+    c = torch.bmm(Z.conj().transpose(1, 2), promoted(dx, Z))
+    if co.mode == "bsr":
+        y = _coarse_solve_bsr(co, c).to(x.dtype)
+    else:
+        y = _coarse_solve(co, c.reshape(-1, mu)).to(x.dtype) \
+            .reshape(-1, co.nu_max, mu)                      # (S, nu, mu)
     return scaled_exchange(dec, torch.bmm(Z, promoted(y, Z)))   # Z y
 
 
@@ -226,7 +492,9 @@ class Schwarz:
     ("geneo", "factorize", "coarse"; with Lanczos GenEO also
     "neumann_factor", "lanczos_steps" and "lanczos_eig", parts of
     "geneo"; with the block-sparse coarse assembly "coarse_bsr_blocks"
-    and "coarse_pinv", parts of "coarse"), each ending in a device
+    and "coarse_pinv", parts of "coarse"; with a nested coarse solve
+    "coarse_levels", the host setup of its levels, in place of
+    "coarse_pinv"), each ending in a device
     synchronization. With
     ``local_solver=banded`` through RCM, ``rcm_bandwidths`` holds the
     bandwidth of each subdomain's factor.
@@ -631,21 +899,178 @@ class Schwarz:
         return SchwarzState(dec=self.dec, A=self.A, solver=None,
                             coarse=None, variant="none")
 
+    # -- coarse operator ---------------------------------------------------
+    def _coarse_cfg(self) -> dict:
+        """The level-2 and level-3 options of a nested coarse solve
+        (``hpddm_tpu/precond/schwarz.py:1427-1461``). level_2_krylov_method:
+        cg (default) or gmres; level_2_schwarz_method: ras/oras/soras ->
+        neighbour-block RAS, asm/osm -> ASM, none -> identity, unset ->
+        block-Jacobi (an unset method with RAS is gmres: CG stalls on a
+        nonsymmetric preconditioner). level_3_krylov_method: unset -> a
+        direct level-3 solve, none -> no third level, cg/gmres -> the
+        Jacobi CG of level_3_{tol,max_it}. level_3_aggregate_size: coarse
+        blocks per level-3 aggregate; level_3_geneo_nu: spectral level-3
+        vectors per aggregate (0: the aggregate constants)."""
+        lvl = self.opt.level(2)
+        sm = lvl.val("schwarz_method") if "schwarz_method" in lvl else None
+        prec = {"ras": "ras", "oras": "ras", "soras": "ras", "asm": "asm",
+                "osm": "asm", "none": "none"}.get(sm, "bj")
+        if "krylov_method" in lvl:
+            method = lvl.val("krylov_method")
+        else:
+            method = "gmres" if prec == "ras" else "cg"
+        l3 = self.opt.level(3)
+        l3m = l3.val("krylov_method") if "krylov_method" in l3 else None
+        lvl3 = ("none" if l3m == "none" else
+                "cg" if l3m is not None else "direct")
+        return dict(method=method, prec=prec,
+                    restart=int(lvl.val("gmres_restart", 30)),
+                    inner_tol=float(lvl.val("tol", 1e-2)),
+                    inner_max_it=int(lvl.val("max_it", 50)),
+                    lvl3=lvl3, l3_tol=float(l3.val("tol", 1e-2)),
+                    l3_max_it=int(l3.val("max_it", 20)),
+                    agg=max(1, int(l3.val("aggregate_size", 1))),
+                    l3_nu=int(l3.val("geneo_nu", 0) or 0))
+
+    def _build_chain(self, E2_np: np.ndarray, dtype) -> dict:
+        """Levels 4+ of the coarse recursion, on the host
+        (``hpddm_tpu/precond/schwarz.py:1463-1529``): for every level k = 4,
+        5, ... with a ``level_k_*`` option (krylov_method, aggregate_size,
+        geneo_nu, tol, max_it), the previous level's matrix aggregated in
+        groups of ``level_k_aggregate_size`` (default 4) indices, by
+        constants or by the ``level_k_geneo_nu`` smallest eigenvectors of
+        each group's diagonal block, Galerkin-projected and shifted by
+        1e-12 trace / n. ``level_k_krylov_method`` cg/gmres continues the
+        chain (a Jacobi CG deflated by level k+1); unset, the level is
+        inverted and ends it. Returns the CoarseState ``chain_*`` fields
+        (empty without level-4 options)."""
+        hd = np.complex128 if np.iscomplexobj(E2_np) else np.float64
+        E_prev = np.asarray(E2_np, dtype=hd)
+        chain_Z, chain_E, chain_inv = [], [], []
+        modes, tols, max_its = [], [], []
+        k = 4
+
+        def dev(a):
+            return torch.as_tensor(a, device=self.device).to(dtype)
+
+        while True:
+            lv = self.opt.level(k)
+            if not any(key in lv for key in ("krylov_method", "aggregate_size",
+                                             "geneo_nu", "tol", "max_it")):
+                break
+            n_prev = E_prev.shape[0]
+            agg = max(1, int(lv.val("aggregate_size", 4)))
+            q = int(lv.val("geneo_nu", 0) or 0)
+            n_agg = (n_prev + agg - 1) // agg
+            if q > 0:
+                cols = []
+                for g in range(n_agg):
+                    rows = np.arange(g * agg, min((g + 1) * agg, n_prev))
+                    Eg = E_prev[np.ix_(rows, rows)]
+                    _, v = np.linalg.eigh(0.5 * (Eg + Eg.conj().T))
+                    kk = min(q, len(rows))
+                    blk = np.zeros((n_prev, kk), dtype=hd)
+                    blk[rows, :] = v[:, :kk]
+                    cols.append(blk)
+                Zk = np.concatenate(cols, axis=1)
+            else:
+                Zk = np.zeros((n_prev, n_agg), dtype=hd)
+                Zk[np.arange(n_prev), np.arange(n_prev) // agg] = 1.0
+            Ek = Zk.conj().T @ (E_prev @ Zk)
+            nk = Ek.shape[0]
+            Ek = Ek + (1e-12 * np.trace(Ek).real / max(nk, 1)
+                       * np.eye(nk, dtype=hd))
+            km = lv.val("krylov_method") if "krylov_method" in lv else None
+            mode = "cg" if km in ("cg", "gmres") else "direct"
+            inv = np.diag(1.0 / np.diag(Ek)) if mode == "cg" \
+                else np.linalg.inv(Ek)
+            chain_Z.append(dev(Zk))
+            chain_E.append(dev(Ek))
+            chain_inv.append(dev(inv))
+            modes.append(mode)
+            tols.append(float(lv.val("tol", 1e-2)))
+            max_its.append(int(lv.val("max_it", 20)))
+            if mode == "direct":
+                break
+            E_prev = Ek
+            k += 1
+        return dict(chain_Z=tuple(chain_Z), chain_E=tuple(chain_E),
+                    chain_inv=tuple(chain_inv), chain_modes=tuple(modes),
+                    chain_tols=tuple(tols), chain_max_its=tuple(max_its))
+
+    def _nbr_blocks(self) -> List[List[int]]:
+        """Each subdomain's neighbour subdomains, from the partner tables
+        (E's block sparsity: E_sq != 0 only where s and q share dofs)."""
+        psub = self.dec.partners.cpu().numpy() // self.dec.m_max
+        S = self.dec.S
+        return [sorted(set(psub[s][psub[s] < S].tolist())) for s in range(S)]
+
+    @staticmethod
+    def _aggregate_ind(S: int, agg: int) -> np.ndarray:
+        """(S, n3) aggregate indicator: blocks s // agg share a column."""
+        n3 = (S + agg - 1) // agg
+        ind = np.zeros((S, n3))
+        ind[np.arange(S), np.arange(S) // agg] = 1.0
+        return ind
+
+    @staticmethod
+    def _lvl3_spectral_basis(Ed_np, En_np, nbr_sub, act, agg: int,
+                             q3: int) -> np.ndarray:
+        """Per-aggregate spectral level-3 basis (S, nu, n_agg * q), on the
+        host (``hpddm_tpu/precond/schwarz.py:1548-1590``): for every
+        aggregate g = {s : s // agg == g}, its local coarse operator (the
+        diagonal and intra-aggregate neighbour blocks on the active slots),
+        symmetrized, and its q smallest eigenvectors, the GenEO selection
+        one level down (HPDDM_schwarz.hpp:449-495 recursed on E). Columns
+        of different aggregates have disjoint support."""
+        S, nu = Ed_np.shape[0], Ed_np.shape[1]
+        n_agg = (S + agg - 1) // agg
+        blocks_of = [[] for _ in range(n_agg)]
+        for s in range(S):
+            blocks_of[s // agg].append(s)
+        cols = []
+        for g in range(n_agg):
+            slots = [(s, a) for s in blocks_of[g]
+                     for a in range(nu) if act[s][a]]
+            dim = len(slots)
+            if dim == 0:
+                continue
+            index = {sa: i for i, sa in enumerate(slots)}
+            Eg = np.zeros((dim, dim), dtype=Ed_np.dtype)
+            for s in blocks_of[g]:
+                aa = [a for a in range(nu) if act[s][a]]
+                ia = [index[(s, a)] for a in aa]
+                Eg[np.ix_(ia, ia)] = Ed_np[s][np.ix_(aa, aa)]
+                for j, q in enumerate(nbr_sub[s]):
+                    q = int(q)
+                    if q < S and q // agg == g:
+                        bb = [b for b in range(nu) if act[q][b]]
+                        iq = [index[(q, b)] for b in bb]
+                        Eg[np.ix_(ia, iq)] += En_np[s, j][np.ix_(aa, bb)]
+            _, v = np.linalg.eigh(0.5 * (Eg + Eg.conj().T))
+            k = min(q3, dim)
+            blk = np.zeros((S, nu, k), dtype=Ed_np.dtype)
+            for i, (s, a) in enumerate(slots):
+                blk[s, a, :] = v[i, :k]
+            cols.append(blk)
+        return np.concatenate(cols, axis=2)
+
     def _build_coarse(self, correction: str, dtype) -> CoarseState:
-        """Assemble E = Z^T A Z and invert it (replicated coarse solve).
+        """Assemble E = Z^T A Z and set up its solve, in the JAX package's
+        order (``hpddm_tpu/precond/schwarz.py:1612-1651``).
 
         Z columns: user vectors (set_vectors) or GenEO eigenvectors
         (solve_gevp); the constant vector by default. E is assembled dense
         (``_assemble_E``) or neighbour-block-sparse (``_bsr_blocks``):
         ``coarse_assembly=bsr``, or by itself where the dense assembly's
         (S, n_max, S*nu) tensor would pass ``_DENSE_COARSE_BYTES_CAP``
-        (an explicit ``coarse_assembly=dense`` is kept, with a warning)."""
+        (an explicit ``coarse_assembly=dense`` is kept, with a warning).
+        Then the level-2 options (``level_2_krylov_method`` or
+        ``level_2_tol``) choose a nested solve, ``iterative`` on the dense E
+        or ``bsr`` on its blocks; without them E is inverted for a direct
+        solve."""
         opt = self.opt
         lvl = opt.level(2)
-        if "krylov_method" in lvl or opt.set("level_2_tol"):
-            raise _not_ported("iterative (level-2) coarse solves "
-                              "(coarse modes 'iterative' and 'bsr')",
-                              "ROADMAP queue A, slice 3d")
         if lvl.val("dump_matrix"):
             raise _not_ported("-hpddm_level_2_dump_matrix",
                               "ROADMAP queue A, slice 5")
@@ -677,6 +1102,19 @@ class Schwarz:
                           f"(dense would take "
                           f"{bytes_dense / (1 << 30):.1f} GB)")
                 bsr = True
+        nested = "krylov_method" in lvl or opt.set("level_2_tol")
+        common = dict(Z=Z, nu_loc=torch.as_tensor(nu_loc, device=self.device),
+                      nu_max=nu_max, correction=correction)
+        if bsr and nested:
+            t0 = time.perf_counter()
+            E_diag, E_nb, nbr_sub = self._bsr_blocks(Z, nu_loc, nu_max)
+            self._timed("coarse_bsr_blocks", t0)
+            if low is not None:
+                E_diag, E_nb = E_diag.to(low), E_nb.to(low)
+            t0 = time.perf_counter()
+            co = self._bsr_nested(E_diag, E_nb, nbr_sub, nu_loc, common)
+            self._timed("coarse_levels", t0)
+            return co
         if bsr:
             E_inv = self._bsr_direct_inverse(Z, nu_loc, nu_max, low)
         else:
@@ -687,10 +1125,165 @@ class Schwarz:
                 # it is inverted in f64 and rounded once, and the Krylov
                 # dispatch switches GMRES to its flexible variant
                 E = E.to(low)
+            if nested:
+                t0 = time.perf_counter()
+                co = self._dense_nested(E, common)
+                self._timed("coarse_levels", t0)
+                return co
             E_inv = invert(E)
-        return CoarseState(Z=Z, E_inv=E_inv,
-                           nu_loc=torch.as_tensor(nu_loc, device=self.device),
-                           nu_max=nu_max, correction=correction)
+        return CoarseState(E_inv=E_inv, **common)
+
+    def _dense_nested(self, E: torch.Tensor, common: dict) -> CoarseState:
+        """The ``iterative`` coarse state of a dense E
+        (``hpddm_tpu/precond/schwarz.py:1651-1731``): the block-Jacobi
+        inverse (inverted in f64 and rounded below f64), the overlapping
+        neighbour blocks' inverses for ``ras``/``asm`` (host f64), the
+        level-3 basis Z2 (each aggregate's constants repeated over nu_max
+        slots, inactive slots included, as the JAX package writes it; or
+        the ``level_3_geneo_nu`` smallest eigenvectors of each aggregate's
+        diagonal sub-block of E), E2 = Z2^H E Z2 shifted by 1e-12 trace / n3
+        (the signed trace), and a direct or Jacobi-CG level 3 with levels
+        4+. ``common``: the state's Z, nu_loc, nu_max and correction."""
+        S = self.dec.S
+        N_c = E.shape[0]
+        nu_max = common["nu_max"]
+        cfg = self._coarse_cfg()
+        hd = np.complex128 if E.is_complex() else np.float64
+        diag = E.reshape(S, nu_max, S, nu_max).diagonal(dim1=0, dim2=2) \
+            .permute(2, 0, 1)                                # (S, nu, nu)
+        Minv = torch.block_diag(*invert(diag))
+        E_np = None
+        if cfg["prec"] in ("ras", "asm") or cfg["l3_nu"] > 0:
+            E_np = E.cpu().numpy().astype(hd)
+        Eloc_inv = loc_idx = None
+        if cfg["prec"] in ("ras", "asm"):
+            nbrs = self._nbr_blocks()
+            L = (1 + max((len(nb) for nb in nbrs), default=0)) * nu_max
+            li = np.full((S, L), N_c, dtype=np.int64)
+            El = np.tile(np.eye(L, dtype=hd), (S, 1, 1))
+            for s in range(S):
+                rows = np.concatenate([q * nu_max + np.arange(nu_max)
+                                       for q in [s] + nbrs[s]])
+                li[s, : len(rows)] = rows
+                El[s, : len(rows), : len(rows)] = E_np[np.ix_(rows, rows)]
+            Eloc_inv = torch.as_tensor(np.linalg.inv(El),
+                                       device=self.device).to(E.dtype)
+            loc_idx = torch.as_tensor(li, device=self.device)
+        if cfg["l3_nu"] > 0:
+            agg = cfg["agg"]
+            cols = []
+            for g in range((S + agg - 1) // agg):
+                rows = np.concatenate([s * nu_max + np.arange(nu_max) for s in
+                                       range(g * agg, min((g + 1) * agg, S))])
+                Eg = E_np[np.ix_(rows, rows)]
+                _, v = np.linalg.eigh(0.5 * (Eg + Eg.conj().T))
+                kk = min(cfg["l3_nu"], len(rows))
+                blk = np.zeros((N_c, kk), dtype=hd)
+                blk[rows, :] = v[:, :kk]
+                cols.append(blk)
+            Z2 = np.concatenate(cols, axis=1)
+        else:
+            Z2 = np.repeat(self._aggregate_ind(S, cfg["agg"]), nu_max, axis=0)
+        Z2 = torch.as_tensor(Z2, device=self.device).to(E.dtype)
+        n3 = Z2.shape[1]
+        E2 = Z2.conj().T @ (E @ Z2)
+        E2 = E2 + (1e-12 * torch.trace(E2) / n3
+                   * torch.eye(n3, dtype=E.dtype, device=E.device))
+        chain = {}
+        if cfg["lvl3"] == "cg":
+            E2_inv, E2_keep = torch.diag(1.0 / torch.diagonal(E2)), E2
+            chain = self._build_chain(E2.cpu().numpy(), E.dtype)
+        else:
+            E2_inv, E2_keep = invert(E2), None
+        return CoarseState(
+            **common, E_inv=Minv, E=E, mode="iterative",
+            inner_tol=cfg["inner_tol"], inner_max_it=cfg["inner_max_it"],
+            method=cfg["method"], restart=cfg["restart"], prec=cfg["prec"],
+            lvl3=cfg["lvl3"], l3_tol=cfg["l3_tol"],
+            l3_max_it=cfg["l3_max_it"], E2_inv=E2_inv, Z2=Z2, E2=E2_keep,
+            Eloc_inv=Eloc_inv, loc_idx=loc_idx, **chain)
+
+    def _bsr_nested(self, E_diag: torch.Tensor, E_nb: torch.Tensor,
+                    nbr_sub: np.ndarray, nu_loc: np.ndarray,
+                    common: dict) -> CoarseState:
+        """The ``bsr`` coarse state (``hpddm_tpu/precond/schwarz.py:
+        1864-1991``), on the host in f64 and rounded to the blocks' dtype:
+        the block-Jacobi inverse, the neighbour-block RAS inverses over
+        (K+1) nu_max blocks for ``ras``/``asm`` (blocks between two
+        neighbours of s from the neighbour's own row), the level-3 basis
+        (aggregate constants on the active slots, or
+        ``_lvl3_spectral_basis``), E2 from the blocks shifted by 1e-12
+        |trace| / n3, a direct or Jacobi-CG level 3 with levels 4+, and the
+        neighbour index. In f32, a ``level_2_tol`` below 1e-5 is clamped to
+        1e-5 with a warning: the f32 nested solve floors near it, and a
+        tighter request spins it to max_it and can diverge the outer
+        solve. ``common``: the state's Z, nu_loc, nu_max and correction."""
+        S, nu = E_diag.shape[0], E_diag.shape[1]
+        K = E_nb.shape[1]
+        dt = E_diag.dtype
+        hd = torch.complex128 if E_diag.is_complex() else torch.float64
+        Ed_np = E_diag.cpu().to(hd).numpy()
+        En_np = E_nb.cpu().to(hd).numpy()
+
+        def dev(a):
+            return torch.as_tensor(a, device=self.device).to(dt)
+
+        Eb_diag_inv = dev(np.linalg.inv(Ed_np))
+        cfg = self._coarse_cfg()
+        act = np.arange(nu)[None, :] < nu_loc[:, None]
+        Eloc_inv = None
+        if cfg["prec"] in ("ras", "asm"):
+            L = (K + 1) * nu
+            El = np.tile(np.eye(L, dtype=Ed_np.dtype), (S, 1, 1))
+            pos = {(s, int(q)): j for s in range(S)
+                   for j, q in enumerate(nbr_sub[s]) if q < S}
+            for s in range(S):
+                ids = [s] + [int(q) for q in nbr_sub[s] if q < S]
+                for a, qa in enumerate(ids):
+                    for b, qb in enumerate(ids):
+                        if qa == qb:
+                            blk = Ed_np[qa]
+                        elif (qa, qb) in pos:
+                            blk = En_np[qa, pos[(qa, qb)]]
+                        else:
+                            continue
+                        El[s, a * nu:(a + 1) * nu, b * nu:(b + 1) * nu] = blk
+            Eloc_inv = dev(np.linalg.inv(El))
+        if cfg["l3_nu"] > 0:
+            V3h = self._lvl3_spectral_basis(Ed_np, En_np, nbr_sub, act,
+                                            cfg["agg"], cfg["l3_nu"])
+        else:
+            ind = self._aggregate_ind(S, cfg["agg"])
+            V3h = (ind[:, None, :] * act[:, :, None]).astype(Ed_np.dtype)
+        n3 = V3h.shape[2]
+        E2 = np.zeros((n3, n3), dtype=Ed_np.dtype)
+        for s in range(S):
+            Vs = V3h[s]                                      # (nu, n3)
+            E2 += Vs.conj().T @ (Ed_np[s] * np.outer(act[s], act[s])) @ Vs
+            for j, q in enumerate(nbr_sub[s]):
+                if q < S:
+                    E2 += Vs.conj().T @ En_np[s, j] @ V3h[q]
+        E2 += 1e-12 * abs(np.trace(E2)) / n3 * np.eye(n3)
+        chain = {}
+        if cfg["lvl3"] == "cg":
+            E2_inv, E2_keep = dev(np.diag(1.0 / np.diag(E2))), dev(E2)
+            chain = self._build_chain(E2, dt)
+        else:
+            E2_inv, E2_keep = dev(np.linalg.inv(E2)), None
+        inner_tol = cfg["inner_tol"]
+        if dt == torch.float32 and inner_tol < 1e-5:
+            print(f"WARNING -- level_2_tol {inner_tol:g} clamped to 1e-5 "
+                  f"(f32 nested coarse floor; tighter requests poison "
+                  f"the outer correction)")
+            inner_tol = 1e-5
+        return CoarseState(
+            **common, E_inv=None, mode="bsr", inner_tol=inner_tol,
+            inner_max_it=cfg["inner_max_it"], method=cfg["method"],
+            restart=cfg["restart"], prec=cfg["prec"], lvl3=cfg["lvl3"],
+            l3_tol=cfg["l3_tol"], l3_max_it=cfg["l3_max_it"], E2_inv=E2_inv,
+            E2=E2_keep, Eloc_inv=Eloc_inv, agg_oh=dev(V3h), Eb_diag=E_diag,
+            Eb_nbr=E_nb, Eb_diag_inv=Eb_diag_inv,
+            nbr_idx=torch.as_tensor(nbr_sub, device=self.device), **chain)
 
     def _bsr_blocks(self, Z: torch.Tensor, nu_loc: np.ndarray, nu_max: int):
         """Neighbour-block-sparse Galerkin blocks (the reference's sparsity

@@ -94,10 +94,13 @@ def solve(A, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
                             converged=res.converged.all()[None])
 
     if method == "gmres" and schwarz and A.coarse is not None \
-            and variant != "flexible" and A.coarse.E_inv.dtype != b.dtype:
-        # a coarse solve in another precision makes M^-1 vary between
-        # applications; flexible GMRES absorbs it (the reference's
-        # HPDDM_MIXED_PRECISION runs use -hpddm_variant flexible)
+            and variant != "flexible" \
+            and (A.coarse.mode in ("iterative", "bsr")
+                 or A.coarse.E_inv.dtype != b.dtype):
+        # a nested (Krylov) coarse solve, or one in another precision,
+        # makes M^-1 vary between applications; flexible GMRES absorbs it
+        # (the reference's multilevel and HPDDM_MIXED_PRECISION runs use
+        # -hpddm_variant flexible)
         variant = "flexible"
     nonsymmetric = schwarz and (A.variant in ("ras", "oras") or (
         A.coarse is not None

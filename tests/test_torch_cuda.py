@@ -561,3 +561,55 @@ def test_grid_exchange_and_gmv_on_card_match_cpu(grid_ops, mu):
     xc, xh = torch.as_tensor(x, device="cuda"), torch.as_tensor(x)
     assert torch.equal(exchange(cu.dec, xc).cpu(), exchange(cpu.dec, xh))
     assert torch.equal(gmv(cu, xc).cpu(), gmv(cpu, xh))
+
+
+@pytest.mark.parametrize("mu", [2, 3, 4])
+def test_muT_gmv_launches_B3_and_matches_plain(grid_ops, mu):
+    """gmv of a panel on the canvas grid state takes its RHS-leading
+    branch: one B3 launch (no B2), B3 equal to its plain version and to the
+    plain canvas form, and the gmv equal to the trailing-mu path's and to
+    the CPU's."""
+    from hpddm_tpu_torch.ops.spmv import spmm_dia_canvas_muT, spmm_muT
+
+    cu, cpu = grid_ops
+    x = np.random.default_rng(20 + mu).normal(size=(cu.dec.S, cu.dec.n_max,
+                                                    mu))
+    xc = torch.as_tensor(x, device="cuda")
+    n2, n3 = kmod.spmm_launches, kmod.muT_launches
+    y = gmv(cu, xc)
+    assert (kmod.spmm_launches - n2, kmod.muT_launches - n3) == (1, 1)
+    assert torch.equal(y, scaled_exchange(cu.dec, spmm(cu.A, xc)))
+    assert torch.equal(y.cpu(), gmv(cpu, torch.as_tensor(x)))
+    xT = xc.transpose(1, 2).contiguous()
+    yT = spmm_muT(cu.A, xT)
+    assert torch.equal(yT, kmod.dia_spmm_muT_reference(cu.A.values, xT,
+                                                       cu.A.offsets))
+    assert torch.equal(yT, spmm_dia_canvas_muT(cu.A, xT))
+
+
+def test_nested_bsr_apply_on_card_matches_cpu(cuda):
+    """A nested block-sparse coarse state (level-2 CG, direct level 3) on
+    the card: the apply equals the CPU's to 1e-12 in f64."""
+    from hpddm_tpu_torch.options import Options
+    from hpddm_tpu_torch.precond.schwarz import apply
+
+    gen = diffusion2d.generate_uniform(16, 64, 64, overlap=1,
+                                       with_neumann=True)
+    x = np.random.default_rng(9).normal(size=(16, 18 * 18, 2))
+    out = []
+    for device in ("cuda", "cpu"):
+        sch = Schwarz(gen.mats, gen.neighbors, gen.mappings, d=gen.d,
+                      options=Options(schwarz_coarse_correction="deflated",
+                                      geneo_nu=4, coarse_assembly="bsr",
+                                      level_2_krylov_method="cg",
+                                      level_2_tol=1e-6), device=device)
+        sch.set_grid_geometry(gen.boxes, 64, 64)
+        if device == "cuda":
+            sch.solve_gevp(gen.neumann)
+            vecs = sch._deflation_vectors
+        else:
+            sch.set_vectors(vecs)
+        state = sch.build()
+        assert state.coarse.mode == "bsr" and state.coarse.lvl3 == "direct"
+        out.append(apply(state, torch.as_tensor(x, device=device)).cpu())
+    torch.testing.assert_close(out[0], out[1], rtol=1e-12, atol=1e-12)

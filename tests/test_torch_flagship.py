@@ -242,9 +242,25 @@ def test_dense_assembly_switches_to_bsr_above_the_cap(monkeypatch, capsys):
 
 
 def test_level2_coarse_solves_still_raise():
-    sch = _small(coarse_assembly="bsr", level_2_tol=1e-2)
-    with pytest.raises(NotImplementedError, match="slice 3d"):
-        sch.build()
+    """The level-2 options on the block-sparse assembly give a ``bsr``
+    state whose solve takes the JAX package's outer iterations and
+    solution on the same GenEO vectors, through flexible GMRES."""
+    kw = dict(coarse_assembly="bsr", level_2_tol=1e-2)
+    sch = _small(**kw)
+    state = sch.build()
+    assert state.coarse.mode == "bsr" and state.coarse.lvl3 == "direct"
+    jgen = jax_d2.generate(4, 40, 40, overlap=1, with_neumann=True)
+    jsch = jax_sz.Schwarz(jgen.mats, jgen.neighbors, jgen.mappings,
+                          d=jgen.d, options=JaxOptions(
+                              schwarz_coarse_correction="deflated",
+                              geneo_nu=2, **kw))
+    jsch.set_vectors(sch._deflation_vectors)
+    f = _rhs(jgen.f, jgen.n_loc, sch.n_max, np.float64)
+    res = solve(state, torch.as_tensor(f), opt=sch.opt)
+    jres = jax_solve(jsch.build(), jnp.asarray(f), opt=jsch.opt)
+    assert res.iterations == int(jres.iterations)
+    np.testing.assert_allclose(res.x.numpy(), np.asarray(jres.x),
+                               rtol=1e-10, atol=1e-12)
 
 
 def test_flagship_twin_f64_counts_equal_jax(twin64):

@@ -34,8 +34,8 @@ CORRECTIONS = ["deflated", "additive", "balanced"]
 
 def jax_state_arrays(state):
     """Flatten a hpddm_tpu SchwarzState (DIA or ELL, inv or banded, a
-    direct coarse solve, the grid plan and canvas where attached) to the
-    numpy dict of interop.state_from_numpy."""
+    direct or nested coarse solve with its levels, the grid plan and
+    canvas where attached) to the numpy dict of interop.state_from_numpy."""
     dec = state.dec
     out = {k: np.asarray(getattr(dec, k)) for k in (
         "n_loc", "d", "if_idx", "if_gid", "if_mask", "ov_mask", "mult",
@@ -65,9 +65,18 @@ def jax_state_arrays(state):
     out["bc"] = None if state.bc is None else np.asarray(state.bc)
     co = state.coarse
     if co is not None:
-        out.update(Z=np.asarray(co.Z), E_inv=np.asarray(co.E_inv),
+        def arr(v):
+            return None if v is None else np.asarray(v)
+        out.update(Z=np.asarray(co.Z), E_inv=arr(co.E_inv),
                    nu_loc=np.asarray(co.nu_loc), nu_max=co.nu_max,
                    correction=co.correction)
+        out.update({k: arr(getattr(co, k)) for k in
+                    interop.COARSE_ARRAYS + ("loc_idx", "nbr_oh")})
+        out.update({k: getattr(co, k) for k in interop.COARSE_SCALARS})
+        out.update({k: tuple(np.asarray(a) for a in getattr(co, k))
+                    for k in interop.COARSE_CHAIN})
+        out.update({k: getattr(co, k) for k in (
+            "chain_modes", "chain_tols", "chain_max_its")})
     return out
 
 
@@ -203,18 +212,28 @@ def test_geneo_eigenvalues_match_jax(jax_setup):
                                rtol=1e-12)
 
 
-def test_unported_branches_raise(port_setup):
+def test_unported_branches_raise(port_setup, jax_setup):
+    """The branches left out raise naming their slice; the nested
+    block-sparse coarse solve builds, and one coarse solve takes the JAX
+    package's inner iterations and values."""
     gen, _ = port_setup
     with pytest.raises(NotImplementedError, match="local_solver"):
         sz.Schwarz(gen.mats, gen.neighbors, gen.mappings, d=gen.d,
                    options=Options(local_solver="lu"), device="cpu").build()
-    with pytest.raises(NotImplementedError, match="'bsr'.*slice 3d"):
-        sch = sz.Schwarz(gen.mats, gen.neighbors, gen.mappings, d=gen.d,
-                         options=Options(schwarz_coarse_correction="deflated",
-                                         coarse_assembly="bsr",
-                                         level_2_tol=1e-2),
-                         device="cpu")
-        sch.build()
+    kw = dict(schwarz_coarse_correction="deflated", coarse_assembly="bsr",
+              level_2_tol=1e-2)
+    co = sz.Schwarz(gen.mats, gen.neighbors, gen.mappings, d=gen.d,
+                    options=Options(**kw), device="cpu").build().coarse
+    jgen, _ = jax_setup
+    jco = jax_sz.Schwarz(jgen.mats, jgen.neighbors, jgen.mappings, d=jgen.d,
+                         options=JaxOptions(**kw)).build().coarse
+    assert co.mode == jco.mode == "bsr" and co.E_inv is None
+    c = np.random.default_rng(5).normal(size=(S, co.nu_max, 2))
+    y, its = sz._coarse_solve_bsr(co, torch.as_tensor(c), return_its=True)
+    jy, jits = jax_sz._coarse_solve_bsr(jco, jnp.asarray(c), return_its=True)
+    assert its == int(jits)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=1e-12,
+                               atol=1e-14)
     with pytest.raises(NotImplementedError, match="cheby.*5d"):
         sz.Schwarz(gen.mats, gen.neighbors, gen.mappings, d=gen.d,
                    options=Options(local_solver="cheby"),
