@@ -1,1 +1,3 @@
-"""Test problems (host-side generators)."""
+"""Test problems (host-side generators), counterparts of
+``hpddm_tpu/models``: ``diffusion2d``, ``diffusion3d``, ``elasticity2d``,
+``elasticity3d``, ``fromfile``, ``sequences`` and ``unstructured``."""

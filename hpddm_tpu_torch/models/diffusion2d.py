@@ -1,9 +1,8 @@
 """2D diffusion test problem (counterpart of ``hpddm_tpu/models/diffusion2d.py``).
 
-``generate`` and ``generate_uniform``, kept bit-faithful to the JAX
-package so that both packages see byte-equal problems: a 5-point
-finite-difference diffusion
-operator on an Nx x Ny grid of [0,10]^2, decomposed into an xGrid x yGrid
+``generate``, ``generate_single`` and ``generate_uniform``, kept
+bit-faithful to the JAX package so that both packages see byte-equal
+problems: a 5-point finite-difference diffusion operator on an Nx x Ny grid of [0,10]^2, decomposed into an xGrid x yGrid
 process grid of overlapping subdomains with the reference's partition of
 unity, neighbor lists and elementwise-aligned mapping lists
 (examples/generate.cpp:43-311 of the reference).
@@ -259,14 +258,20 @@ def generate(size_world: int, Nx: int = 100, Ny: int = 100, overlap: int = 1,
     return out
 
 
+def generate_single(Nx: int = 100, Ny: int = 100, sym: bool = False,
+                    mu: int = 0, dtype=np.float64) -> Generated:
+    """Single-domain problem (the sizeWorld == 1 path of schwarz.cpp)."""
+    return generate(1, Nx, Ny, overlap=1, sym=sym, mu=mu, dtype=dtype)
+
+
 def generate_uniform(size_world: int, Nx: int = 100, Ny: int = 100,
                      overlap: int = 1, mu: int = 0,
                      rng: Optional[np.random.Generator] = None,
                      kappa=None, with_neumann: bool = False,
                      dtype=np.float64) -> Generated:
-    """Uniform-box variant of :func:`generate`: the JAX package's problem
-    for its structured-grid halo exchange (``hpddm_tpu/parallel/grid.py``,
-    not ported yet) and for banded local solves on grid boxes.
+    """Uniform-box variant of :func:`generate`: the problem of the
+    structured-grid slab exchange (``parallel/grid.py``) and of banded
+    local solves on grid boxes.
 
     Boxes at the domain edge are extended *inward* instead of clipped, so
     every subdomain is exactly (w + 2*overlap) per side — uniform static

@@ -478,6 +478,29 @@ def compute_residual(state: SchwarzState, x: torch.Tensor, f: torch.Tensor,
             torch.amax(torch.abs(r), dim=(0, 1)))
 
 
+# a diagonal entry this many times its matrix's median |diagonal| is a
+# penalty row: the elasticity generators clamp with 1e8 max|A| on the
+# diagonal (models/elasticity2d.py, models/elasticity3d.py)
+PENALTY_RATIO = 1e6
+
+
+def neumann_regularization(neumann: Sequence[MatrixCSR]) -> float:
+    """The diagonal shift of Lanczos GenEO's Neumann solves: 1e-8 times
+    the mean over the matrices of each one's mean |diagonal|, penalty rows
+    (``PENALTY_RATIO``) left out. Without penalty rows this is the JAX
+    package's shift (``hpddm_tpu/precond/schwarz.py:987-989``), bit for
+    bit. The JAX package also averages the penalty rows in: on unscaled
+    3D elasticity at 10^3 nodes its shift comes to 14.9 where 6.8e-7 was
+    meant, and the shifted pencil of a floating subdomain loses its six
+    rigid-body modes (smallest eigenvalue 0.50-1.49 where they are below
+    1e-6); tests/test_torch_elasticity.py, ROADMAP queue C, C10."""
+    means = []
+    for m in neumann:
+        d = np.abs(m.scipy().diagonal())
+        means.append(d[d <= PENALTY_RATIO * np.median(d)].mean())
+    return 1e-8 * float(np.mean(means))
+
+
 # ----------------------------------------------------------------------
 # Setup
 # ----------------------------------------------------------------------
@@ -661,11 +684,12 @@ class Schwarz:
         The inner solve of the (diagonally regularized) Neumann matrix:
 
         * ``local_solver=banded``: a host-f64 banded factor of
-          A_neu + eps_reg I (grid boxes, else RCM), eps_reg = 1e-8 times
-          the mean |diagonal|, applied once with one refinement step. The
-          factor stays on the host path: the pencil is nearly singular, and
-          a lower-precision recursion moves exactly the near-null
-          eigenvalues GenEO needs (``hpddm_tpu/precond/schwarz.py:1022-1030``);
+          A_neu + eps_reg I (grid boxes, else RCM), eps_reg from
+          ``neumann_regularization``, applied once with one refinement
+          step. The factor stays on the host path: the pencil is nearly
+          singular, and a lower-precision recursion moves exactly the
+          near-null eigenvalues GenEO needs
+          (``hpddm_tpu/precond/schwarz.py:1022-1030``);
         * otherwise: 25 steps of CG preconditioned by the dense inverse of
           the assembled matrix, inverted one subdomain at a time as
           ``build`` inverts.
@@ -691,8 +715,7 @@ class Schwarz:
             return mask * spmm(self.A, mask * x)
 
         # diagonal regularization of the (possibly singular) Neumann matrix
-        eps_reg = 1e-8 * float(np.mean([np.abs(m.scipy().diagonal()).mean()
-                                        for m in neumann]))
+        eps_reg = neumann_regularization(neumann)
 
         def apply_Aneu(x):
             return spmm(A_neu, x) + eps_reg * x

@@ -2,7 +2,10 @@
 DIA SpMM in both panel layouts (B2/B3), ELL SpMM (B4, with its payload;
 also with a non-finite x[s, 0]) and the one-pass exchange (B5), at mu 1,
 3, 4, 33 and 640; and the banded local solve and Lanczos GenEO on the card
-(against the CPU, and with no plain-version call).
+(against the CPU, and with no plain-version call). The slice-5b shapes: B1
+at the 21 diagonals of 2D elasticity and the 7 of 3D diffusion, B4 at the
+H8 operator's rows of up to 80 slots, and the dense-coupling banded solve
+of 2D elasticity node slabs against the CPU.
 
 This file imports no JAX, so it also runs on a machine without it:
 
@@ -613,3 +616,80 @@ def test_nested_bsr_apply_on_card_matches_cpu(cuda):
         assert state.coarse.mode == "bsr" and state.coarse.lvl3 == "direct"
         out.append(apply(state, torch.as_tensor(x, device=device)).cpu())
     torch.testing.assert_close(out[0], out[1], rtol=1e-12, atol=1e-12)
+
+
+@pytest.fixture(scope="module")
+def model_ops():
+    """The slice-5b operators on the card: 2D elasticity (DIA, 21
+    diagonals), 3D diffusion (DIA, 7) and 3D elasticity (ELL, rows of up
+    to 81 slots)."""
+    from hpddm_tpu_torch.models import diffusion3d, elasticity2d, elasticity3d
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+    e2, _, _ = elasticity2d.generate(4, 24, 24, overlap=2)
+    d3 = diffusion3d.generate_uniform(8, 16, 16, 16, overlap=1)
+    e3, _, _ = elasticity3d.generate(4, 8, 8, 8, overlap=2)
+    return {name: pack_local_matrices(g.mats, device="cuda")
+            for name, g in (("elasticity2d", e2), ("diffusion3d", d3),
+                            ("elasticity3d", e3))}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name,nd", [("elasticity2d", 21),
+                                     ("diffusion3d", 7)])
+def test_dia_kernel_on_model_operators_bitwise(model_ops, name, nd, dtype):
+    """B1 at the 21 diagonals of the Q1 elasticity operator and the 7 of
+    the 3D stencil, against its plain version."""
+    A = model_ops[name]
+    assert isinstance(A, BatchedDIA) and len(A.offsets) == nd
+    vals = A.values.to(dtype).contiguous()
+    x = torch.as_tensor(np.random.default_rng(nd).normal(
+        size=(A.values.shape[0], A.n_max)), device="cuda").to(dtype)
+    before = kmod.launches
+    y = kmod.dia_spmv(vals, x, A.offsets)
+    torch.cuda.synchronize()
+    assert kmod.launches == before + 1
+    assert torch.equal(y, kmod.dia_spmv_reference(vals, x, A.offsets))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mu", [1, 4, 10])
+def test_ell_kernel_on_elasticity3d_bitwise(model_ops, mu, dtype):
+    """B4 at the H8 operator's payload (rows of up to 81 slots) against
+    its plain versions."""
+    A = model_ops["elasticity3d"].astype(dtype)
+    assert isinstance(A, BatchedELL) and 75 <= A.values.shape[1] <= 81
+    x = torch.as_tensor(np.random.default_rng(mu).normal(
+        size=(A.values.shape[0], A.n_max, mu)), device="cuda").to(dtype)
+    before = ek.launches
+    y = ek.ell_spmv(A.values, A.cols, x, A.payload)
+    torch.cuda.synchronize()
+    assert ek.launches == before + 1
+    assert torch.equal(y, ek.ell_spmv_payload_reference(A.values, A.payload,
+                                                        x))
+    assert torch.equal(y, ek.ell_spmv_reference(A.values, A.cols, x))
+
+
+@pytest.mark.parametrize("mu", [1, 2])
+def test_dense_coupling_banded_solve_on_card_matches_cpu(cuda, mu):
+    """The banded solve with dense coupling (2D elasticity on node slabs)
+    on the card against the same solve on the CPU, f64."""
+    from hpddm_tpu_torch.examples.bench_elasticity import banded_shapes
+    from hpddm_tpu_torch.models import elasticity2d
+
+    S, Nx = 4, 24
+    gen, _, _ = elasticity2d.generate(
+        S, Nx, Nx, contrast=1e2, overlap=1,
+        owner_fn=lambda ix, iy: min(ix * S // Nx, S - 1))
+    boxes = [(0, c, 0, r) for (r, c) in banded_shapes(gen, Nx)]
+    n_max = max(gen.n_loc)
+    card, cpu = (bs.build_banded_solver(gen.mats, boxes, n_max,
+                                        dtype=torch.float64, device=d)
+                 for d in (cuda, "cpu"))
+    assert card.cl.dim() == 4 and torch.equal(card.Dinv.cpu(), cpu.Dinv)
+    b = np.random.default_rng(mu).normal(size=(S, n_max, mu))
+    x = card.solve(torch.as_tensor(b, device=cuda)).cpu().numpy()
+    want = cpu.solve(torch.as_tensor(b)).numpy()
+    np.testing.assert_allclose(x, want, rtol=1e-12,
+                               atol=1e-12 * np.abs(want).max())
