@@ -38,10 +38,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "dia_spmv": {
         **{f"dia_spmv_{t}": [_P, _P, _P, _I, _I, _I,
                              ctypes.POINTER(ctypes.c_int), _P]
-           for t in ("f32", "f64")},
+           for t in ("f32", "f64", "c128")},
         **{f"dia_spmm_{t}": [_P, _P, _P, _I, _I, _I, _I, _I,
                              ctypes.POINTER(ctypes.c_int), _P]
-           for t in ("f32", "f64")}},
+           for t in ("f32", "f64", "c128")}},
     "ell_spmv": {f"ell_spmv_{t}": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I,
                                    _I, _P]
                  for t in ("f32", "f64")},

@@ -101,9 +101,11 @@ def _diag_offsets(mats: Sequence[MatrixCSR],
 def ell_pack(csr, n_max: int, width: int):
     """CSR -> padded (n_max, width) ELL arrays, each row's entries in CSR
     storage order (the numpy branch of ``hpddm_tpu/native`` ``ell_pack``;
-    the port builds no host library)."""
+    the port builds no host library). Real values are packed in f64,
+    complex ones in c128: the imaginary part is never dropped."""
     n = csr.shape[0]
-    values = np.zeros((n_max, width), dtype=np.float64)
+    values = np.zeros((n_max, width),
+                      dtype=np.result_type(csr.dtype, np.float64))
     cols = np.zeros((n_max, width), dtype=np.int32)
     for i in range(n):
         lo, hi = csr.indptr[i], csr.indptr[i + 1]

@@ -75,6 +75,14 @@
 // PyTorch version (ops/dia_spmv.py `dia_spmv_reference`): the two agree to
 // the bit on the same device. No sum over k is split across threads.
 //
+// Complex128 (B1 and B2; B3 has no complex form): T is a 16-byte-aligned
+// pair of doubles, so a unit is one entry, one 16-byte load (V = 1), and
+// the 5-diagonal unrolled loop applies to the native Helmholtz operator.
+// mul_rn and add_rn (kernel_util.cuh) write the complex product and sum in
+// real operations, each rounded once: the plain version's explicit form
+// (ops/dia_spmv.py `_complex_reference`), so the two agree to the bit too.
+// Bound: S * n * (nd + 2 * mu) * 16 bytes and 8 * nd * mu real flops a row.
+//
 // Plain C interface (built with nvcc into a shared library, loaded with
 // ctypes): launches on the given stream, allocates nothing, synchronises
 // nothing, and returns the launch's cudaError_t. Limits: nd <= 32 and
@@ -192,7 +200,7 @@ dia_rhs_kernel(const T* __restrict__ vals, const T* __restrict__ x,
     for (int e = 0; e < V; ++e) acc[e] = T(0);
 #pragma unroll
     for (int k = 0; k < nd; ++k) {
-      const T v = stream_vals ? __ldcs(vs + (size_t)k * n) : vs[(size_t)k * n];
+      const T v = load_one(vs + (size_t)k * n, stream_vals);
       const unsigned j = (unsigned)i + (unsigned)offs.off[k];
       T xv[V];
       if (inside || j < (unsigned)n) {
@@ -294,10 +302,14 @@ static int launch(const T* vals, const T* x, T* y, int S, int nd, int n,
       return fixed ? launch_rows<T, DIA_FIXED_ND, 1, 1>(DIA_ARGS)
                    : launch_rows<T, 0, 1, 1>(DIA_ARGS);
     }
-    if (vec) return fixed ? launch_rows<T, DIA_FIXED_ND, W, kRhsChunk>(DIA_ARGS)
-                          : launch_rows<T, 0, W, kRhsChunk>(DIA_ARGS);
-    return fixed ? launch_rows<T, DIA_FIXED_ND, 1, kRhsChunk>(DIA_ARGS)
-                 : launch_rows<T, 0, 1, kRhsChunk>(DIA_ARGS);
+    if constexpr (sizeof(T) == 16) {
+      return (int)cudaErrorInvalidValue;   // B3 has no complex form
+    } else {
+      if (vec) return fixed ? launch_rows<T, DIA_FIXED_ND, W, kRhsChunk>(DIA_ARGS)
+                            : launch_rows<T, 0, W, kRhsChunk>(DIA_ARGS);
+      return fixed ? launch_rows<T, DIA_FIXED_ND, 1, kRhsChunk>(DIA_ARGS)
+                   : launch_rows<T, 0, 1, kRhsChunk>(DIA_ARGS);
+    }
   }
   // (S, n, mu): right-hand sides contiguous
   const bool vec = mu % W == 0 && aligned16(x) && aligned16(y);
@@ -334,6 +346,20 @@ int dia_spmm_f64(const double* vals, const double* x, double* y, int S,
                  void* stream) {
   return launch<double>(vals, x, y, S, nd, n, mu, mu_leading != 0, offsets,
                         stream);
+}
+
+// complex128 (interleaved re, im; 16-byte aligned): B1, and B2 (mu_leading
+// 0 only: B3 on complex is not instantiated)
+int dia_spmv_c128(const Complex128* vals, const Complex128* x, Complex128* y,
+                  int S, int nd, int n, const int* offsets, void* stream) {
+  return launch<Complex128>(vals, x, y, S, nd, n, 1, true, offsets, stream);
+}
+
+int dia_spmm_c128(const Complex128* vals, const Complex128* x, Complex128* y,
+                  int S, int nd, int n, int mu, int mu_leading,
+                  const int* offsets, void* stream) {
+  if (mu_leading != 0) return (int)cudaErrorInvalidValue;
+  return launch<Complex128>(vals, x, y, S, nd, n, mu, false, offsets, stream);
 }
 
 }  // extern "C"

@@ -37,9 +37,40 @@ __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 
+// a complex double, 16-byte aligned, so that one entry is one 16-byte load
+// (V = 1 in the units of load_run and store_run)
+struct __align__(16) Complex128 {
+  double re, im;
+  __host__ __device__ Complex128(double r = 0.0, double i = 0.0) : re(r), im(i) {}
+};
+
+// the complex product and sum in real operations, each rounded once:
+// (ar br - ai bi) + i (ar bi + ai br), the order of the plain PyTorch
+// version (ops/dia_spmv.py `_complex_reference`)
+__device__ __forceinline__ Complex128 mul_rn(Complex128 a, Complex128 b) {
+  return Complex128(__dsub_rn(__dmul_rn(a.re, b.re), __dmul_rn(a.im, b.im)),
+                    __dadd_rn(__dmul_rn(a.re, b.im), __dmul_rn(a.im, b.re)));
+}
+__device__ __forceinline__ Complex128 add_rn(Complex128 a, Complex128 b) {
+  return Complex128(__dadd_rn(a.re, b.re), __dadd_rn(a.im, b.im));
+}
+
 template <typename T> struct Vec16;
 template <> struct Vec16<float> { typedef float4 type; };
 template <> struct Vec16<double> { typedef double2 type; };
+template <> struct Vec16<Complex128> { typedef double2 type; };
+
+// one value at p, evict-first where STREAM
+template <typename T>
+__device__ __forceinline__ T load_one(const T* __restrict__ p, bool stream) {
+  if constexpr (sizeof(T) == 16) {
+    const double2 w = stream ? __ldcs(reinterpret_cast<const double2*>(p))
+                             : *reinterpret_cast<const double2*>(p);
+    return T(w.x, w.y);
+  } else {
+    return stream ? __ldcs(p) : *p;
+  }
+}
 
 // V consecutive values at p: one 16-byte load when V values are 16 bytes
 // and VEC (p aligned), else V loads; STREAM: evict-first
@@ -54,7 +85,7 @@ __device__ __forceinline__ void load_run(const T* __restrict__ p, T (&v)[V]) {
     for (int r = 0; r < V; ++r) v[r] = e[r];
   } else {
 #pragma unroll
-    for (int r = 0; r < V; ++r) v[r] = STREAM ? __ldcs(p + r) : p[r];
+    for (int r = 0; r < V; ++r) v[r] = load_one(p + r, STREAM);
   }
 }
 

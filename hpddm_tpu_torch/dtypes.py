@@ -37,6 +37,32 @@ def underlying(dtype) -> torch.dtype:
     return dtype
 
 
+def is_complex(dtype) -> bool:
+    return as_torch_dtype(dtype) in (torch.complex64, torch.complex128)
+
+
+def conj(x: torch.Tensor) -> torch.Tensor:
+    """Conjugate for complex dtypes, identity otherwise (Wrapper<K>::conj)."""
+    return x.conj() if x.is_complex() else x
+
+
+def downscaled(dtype) -> torch.dtype:
+    """Next-lower precision (coarse-level storage under mixed precision):
+    f64 -> f32, f32 -> bf16, c128 -> c64, c64 -> c64 (there is no complex
+    bf16), as ``hpddm_tpu/dtypes.py:34-48``."""
+    dtype = as_torch_dtype(dtype)
+    return {torch.float64: torch.float32, torch.float32: torch.bfloat16,
+            torch.complex128: torch.complex64}.get(dtype, dtype)
+
+
+def upscaled(dtype) -> torch.dtype:
+    """Next-higher precision (residual replay / reproducibility checks):
+    bf16 -> f32 -> f64, c64 -> c128; f64 and c128 stay."""
+    dtype = as_torch_dtype(dtype)
+    return {torch.bfloat16: torch.float32, torch.float32: torch.float64,
+            torch.complex64: torch.complex128}.get(dtype, dtype)
+
+
 def is_low_precision(dtype) -> bool:
     """Below f64: setup-time factorizations are computed in f64 and rounded
     once (``local_solve.py``, ``geneo.py`` and the coarse inverse)."""

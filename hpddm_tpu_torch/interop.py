@@ -21,8 +21,11 @@ Keys of ``arrays`` (numpy arrays unless stated):
   w), the JAX package's row-major layout; an ELL operator is stored
   slot-major with its kernel payload and gets the one-pass exchange plan,
   as ``Schwarz`` gives them;
-* local solver (absent for an ``operator_state``): ``inv`` as ``factor``
-  (S, n_max, n_max), or banded as
+* local solver (absent for an ``operator_state``): ``factor`` (S, n_max,
+  n_max) with str ``local_kind`` (``inv`` where absent; ``lu``, ``chol``
+  or ``qr``) and ``aux`` (lu: the JAX package's 0-based pivots, carried
+  as torch's 1-based ones; qr: R), the factor of the optimized matrices
+  for an ORAS/SORAS state, or banded as
   ``Dinv``, ``cl``, ``cu``, ``idx_fwd``, ``msk_fwd``, ``idx_inv``,
   ``msk_inv`` (the JAX package's ``BandedSolver`` arrays) and ints
   ``wy_max``, ``wx_max``, ``cw``;
@@ -50,7 +53,7 @@ import torch
 
 from hpddm_tpu_torch.core.formats import BatchedDIA, BatchedELL
 from hpddm_tpu_torch.device import DEFAULT, as_device
-from hpddm_tpu_torch.dtypes import as_torch_dtype
+from hpddm_tpu_torch.dtypes import as_torch_dtype, underlying
 from hpddm_tpu_torch.ops.banded_solve import BandedSolver
 from hpddm_tpu_torch.ops.local_solve import LocalSolver
 from hpddm_tpu_torch.parallel.decomposition import Decomposition
@@ -68,10 +71,15 @@ COARSE_CHAIN = ("chain_Z", "chain_E", "chain_inv")
 
 
 def state_from_numpy(arrays: Dict[str, Any], device=DEFAULT,
-                     dtype=torch.float64) -> SchwarzState:
+                     dtype=None) -> SchwarzState:
     """A port ``SchwarzState`` on ``device`` whose floating tensors are in
-    ``dtype`` and whose index tensors are int64 (int32 for ELL columns)."""
+    ``dtype`` (default f64, c128 for a complex operator ``A_values``),
+    the decomposition's POU and multiplicities in its real type, and whose
+    index tensors are int64 (int32 for ELL columns)."""
     device = as_device(device)
+    if dtype is None:
+        dtype = torch.complex128 if np.iscomplexobj(arrays["A_values"]) \
+            else torch.float64
     dtype = as_torch_dtype(dtype)
 
     def t(key, dt):
@@ -80,6 +88,9 @@ def state_from_numpy(arrays: Dict[str, Any], device=DEFAULT,
 
     def f(key):
         return t(key, dtype)
+
+    def r(key):
+        return t(key, underlying(dtype))
 
     def i(key):
         return t(key, torch.int64)
@@ -99,8 +110,8 @@ def state_from_numpy(arrays: Dict[str, Any], device=DEFAULT,
 
     dec = Decomposition(
         n_loc=t("n_loc", torch.int32),
-        d=f("d"), if_idx=i("if_idx"), if_gid=i("if_gid"),
-        if_mask=b("if_mask"), ov_mask=b("ov_mask"), mult=f("mult"),
+        d=r("d"), if_idx=i("if_idx"), if_gid=i("if_gid"),
+        if_mask=b("if_mask"), ov_mask=b("ov_mask"), mult=r("mult"),
         partners=i("partners"), inv_map=i("inv_map"), is_if=b("is_if"),
         sub_shifts=tuple(arrays.get("sub_shifts", ())),
         **{k: int(arrays[k]) for k in DEC_INT_KEYS})
@@ -153,7 +164,14 @@ def state_from_numpy(arrays: Dict[str, Any], device=DEFAULT,
             n_max=int(arrays["n_max"]), S=int(arrays["S"]),
             cw=int(arrays["cw"]))
     elif arrays.get("factor") is not None:
-        solver = LocalSolver(kind="inv", factor=kept("factor"))
+        kind = str(arrays.get("local_kind", "inv"))
+        aux = arrays.get("aux")
+        if kind == "lu":
+            aux = torch.as_tensor(np.asarray(aux) + 1, dtype=torch.int32,
+                                  device=device)
+        elif aux is not None:
+            aux = kept("aux")
+        solver = LocalSolver(kind=kind, factor=kept("factor"), aux=aux)
     else:
         solver = None                                 # operator_state
     bc = arrays.get("bc")

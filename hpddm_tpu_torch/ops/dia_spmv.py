@@ -5,8 +5,8 @@ Counterpart of ``hpddm_tpu/ops/pallas_spmv.py``. ``dia_spmv``
 
     y[s, i] = sum_k vals[s, k, i] * x[s, i + offsets[k]]
 
-with x read as 0 outside [0, n), for vals (S, nd, n) and x (S, n) in f32 or
-f64. ``dia_spmm`` (``_dia_spmv_blocked_mu``, :167) computes the same
+with x read as 0 outside [0, n), for vals (S, nd, n) and x (S, n) in f32,
+f64 or c128. ``dia_spmm`` (``_dia_spmv_blocked_mu``, :167) computes the same
 product for a panel x (S, n, mu), and ``dia_spmm_muT``
 (``_dia_spmv_blocked_muT``, :253) for a panel with the RHS axis leading,
 xT (S, mu, n). All three launch kernels of one source,
@@ -14,6 +14,14 @@ xT (S, mu, n). All three launch kernels of one source,
 CUDA tensors each wrapper launches its hand-written kernel; on CPU tensors
 it runs the plain PyTorch version of the same function. A CUDA tensor that
 the kernel does not take raises; nothing falls back.
+
+Complex (c128, B1 and B2 only): the product of a value and an entry of x
+is written out in real operations, each rounded once,
+(vr xr - vi xi) + i (vr xi + vi xr), and the diagonals are summed in
+order, componentwise. The plain version computes exactly these operations
+on ``torch.view_as_real``, so kernel and plain version agree to the bit.
+B3 (``dia_spmm_muT``) and c64 raise ``TypeError``: B3 on complex is
+ROADMAP queue B, and native c64 has no parity target (queue C, C11).
 """
 
 from __future__ import annotations
@@ -39,7 +47,10 @@ MAX_PANEL = 2 ** 31           # one subdomain's x, n * mu, holds fewer elements
 def dia_spmv_reference(vals: torch.Tensor, x: torch.Tensor,
                        offsets: Sequence[int]) -> torch.Tensor:
     """Plain version: y = sum_k vals[:, k] * shift(x, offsets[k]), summed in
-    diagonal order from zero. x: (S, n) or (S, n, mu); vals: (S, nd, n)."""
+    diagonal order from zero. x: (S, n) or (S, n, mu); vals: (S, nd, n).
+    Complex operands take ``_complex_reference``'s explicit form."""
+    if vals.is_complex() or x.is_complex():
+        return _complex_reference(vals, x, offsets)
     S, nd, n = vals.shape
     extra = x.dim() - 2
     w = max((abs(int(o)) for o in offsets), default=0)
@@ -49,6 +60,31 @@ def dia_spmv_reference(vals: torch.Tensor, x: torch.Tensor,
         shifted = xp[:, w + off: w + off + n]
         out = out + vals[:, k].reshape(S, n, *([1] * extra)) * shifted
     return out
+
+
+def _complex_reference(vals: torch.Tensor, x: torch.Tensor,
+                       offsets: Sequence[int]) -> torch.Tensor:
+    """The complex product in real operations, each rounded once: for
+    diagonal k, p = v * x_shifted as (vr xr - vi xi, vr xi + vi xr), then
+    acc = acc + p componentwise, the diagonals in order from zero. This
+    defines the complex kernels' function (csrc/dia_spmv.cu ``mul_rn`` and
+    ``add_rn`` of ``Complex128``)."""
+    dt = torch.promote_types(torch.result_type(vals, x), torch.complex64)
+    S, nd, n = vals.shape
+    extra = x.dim() - 2
+    v = torch.view_as_real(vals.to(dt).resolve_conj())      # (S, nd, n, 2)
+    xr = torch.view_as_real(x.to(dt).resolve_conj())        # (S, n, ..., 2)
+    w = max((abs(int(o)) for o in offsets), default=0)
+    xp = F.pad(xr, (0, 0) + (0, 0) * extra + (w, w))
+    re = xr.new_zeros(x.shape)
+    im = xr.new_zeros(x.shape)
+    for k, off in enumerate(offsets):
+        sh = xp[:, w + off: w + off + n]
+        vr = v[:, k, :, 0].reshape(S, n, *([1] * extra))
+        vi = v[:, k, :, 1].reshape(S, n, *([1] * extra))
+        re = re + (vr * sh[..., 0] - vi * sh[..., 1])
+        im = im + (vr * sh[..., 1] + vi * sh[..., 0])
+    return torch.complex(re, im)
 
 
 def dia_spmm_muT_reference(vals: torch.Tensor, xT: torch.Tensor,
@@ -70,17 +106,35 @@ def check_limits(name: str, S: int, nd: int, n: int, mu: int) -> None:
                          "2^31, S < 2^31)")
 
 
+# the dtypes of each kernel's instantiations, by entry-point suffix
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64",
+           torch.complex128: "c128"}
+
+
 def _checked(name: str, vals: torch.Tensor, x: torch.Tensor,
-             offsets: Sequence[int], shape: tuple) -> None:
+             offsets: Sequence[int], shape: tuple,
+             complex_ok: bool = True) -> None:
     """Raise unless the kernel takes vals (S, nd, n) and x of ``shape``:
-    one CUDA device (the current one), float32 or float64 for both,
-    contiguous, and within the launch's limits."""
+    one CUDA device (the current one), float32, float64 or (where
+    ``complex_ok``) complex128 for both, contiguous, 16-byte aligned if
+    complex, and within the launch's limits."""
     if not (vals.is_cuda and x.is_cuda and vals.device == x.device):
         raise ValueError(f"{name}: vals on {vals.device}, x on {x.device}; "
                          "both must be on the same CUDA device")
-    if vals.dtype != x.dtype or x.dtype not in (torch.float32, torch.float64):
+    if x.is_complex() and not (complex_ok and x.dtype == torch.complex128):
+        raise TypeError(
+            f"{name}: dtype {x.dtype}; " + (
+                "complex128 is the kernel's only complex type (native "
+                "complex64 has no parity target: ROADMAP queue C, C11)"
+                if complex_ok else "the kernel takes float32 or float64; "
+                "its complex form is ROADMAP queue B, item B3c"))
+    if vals.dtype != x.dtype or x.dtype not in _SUFFIX:
         raise TypeError(f"{name}: dtypes {vals.dtype}/{x.dtype}; the kernel "
-                        "takes float32 or float64, the same for both")
+                        "takes float32, float64 or complex128, the same for "
+                        "both")
+    if x.is_complex() and (vals.data_ptr() % 16 or x.data_ptr() % 16):
+        raise ValueError(f"{name}: complex128 tensors must start on a "
+                         "16-byte boundary (one load per entry)")
     if vals.dim() != 3 or x.dim() != len(shape):
         raise ValueError(f"{name}: shapes {tuple(vals.shape)} and "
                          f"{tuple(x.shape)}; expected (S, nd, n) and "
@@ -108,11 +162,11 @@ def dia_spmv(vals: torch.Tensor, x: torch.Tensor,
     if vals.device.type == "cpu" and x.device.type == "cpu":
         return dia_spmv_reference(vals, x, offsets)
     S, nd, n = vals.shape if vals.dim() == 3 else (0, 0, 0)
+    vals, x = vals.resolve_conj(), x.resolve_conj()
     _checked("dia_spmv", vals, x, offsets, (S, n))
     from hpddm_tpu_torch import _build
 
-    lib = _build.load()
-    fn = lib.dia_spmv_f64 if x.dtype == torch.float64 else lib.dia_spmv_f32
+    fn = getattr(_build.load(), f"dia_spmv_{_SUFFIX[x.dtype]}")
     y = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(vals.data_ptr(), x.data_ptr(), y.data_ptr(), S, nd, n,
@@ -130,11 +184,12 @@ def _dia_spmm(name: str, vals: torch.Tensor, x: torch.Tensor,
     global spmm_launches, muT_launches
     S, nd, n = vals.shape if vals.dim() == 3 else (0, 0, 0)
     mu = x.shape[1 if mu_leading else -1] if x.dim() == 3 else 0
-    _checked(name, vals, x, offsets, (S, mu, n) if mu_leading else (S, n, mu))
+    vals, x = vals.resolve_conj(), x.resolve_conj()
+    _checked(name, vals, x, offsets, (S, mu, n) if mu_leading else (S, n, mu),
+             complex_ok=not mu_leading)
     from hpddm_tpu_torch import _build
 
-    lib = _build.load()
-    fn = lib.dia_spmm_f64 if x.dtype == torch.float64 else lib.dia_spmm_f32
+    fn = getattr(_build.load(), f"dia_spmm_{_SUFFIX[x.dtype]}")
     y = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(vals.data_ptr(), x.data_ptr(), y.data_ptr(), S, nd, n, mu,

@@ -129,7 +129,8 @@ def ell_spmv(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
                          "be on the same CUDA device")
     if vals.dtype != x.dtype or x.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"ell_spmv: dtypes {vals.dtype}/{x.dtype}; the kernel "
-                        "takes float32 or float64, the same for both")
+                        "takes float32 or float64, the same for both (its "
+                        "complex form is ROADMAP queue B, item B4c)")
     if vals.dim() != 3 or x.dim() != 3 or cols.shape != vals.shape or \
             payload.cols.shape != vals.shape:
         raise ValueError(f"ell_spmv: shapes {tuple(vals.shape)}, "

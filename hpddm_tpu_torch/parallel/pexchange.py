@@ -107,7 +107,8 @@ def pexchange(plan: ExchangePlan, x: torch.Tensor) -> torch.Tensor:
                          f"{x.device}; both must be on the same CUDA device")
     if x.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"pexchange: dtype {x.dtype}; the kernel takes "
-                        "float32 or float64")
+                        "float32 or float64 (its complex form is ROADMAP "
+                        "queue B, item B5c)")
     if x.dim() != 3 or tuple(x.shape[:2]) != tuple(plan.interior.shape):
         raise ValueError(f"pexchange: x {tuple(x.shape)} does not match the "
                          f"plan's (S, n_max) = {tuple(plan.interior.shape)}")

@@ -24,15 +24,17 @@ runtime methods are plain functions over it:
 one-pass exchange plan for ELL operators), the grid slab exchange and
 canvas annotation of ``set_grid_geometry``, GenEO (the dense pencil, or
 shift-invert Lanczos with banded or ``inv``-preconditioned inner solves),
-``inv`` or banded (block-tridiagonal, on grid boxes or through RCM) local
-factors and the Galerkin coarse operator, assembled dense or
+``inv``, ``lu``, ``chol``, ``qr`` or banded (block-tridiagonal, on grid
+boxes or through RCM) local factors, of the user's optimized matrices
+(``optimized_mats``) for oras/soras/osm, real or complex128, and the
+Galerkin coarse operator, assembled dense or
 neighbour-block-sparse, inverted for a replicated direct solve or kept
 for the nested solves of the level-2 options (``level_2_*``, ``level_3_*``
 and ``level_4+``). It puts everything on the card unless the caller
 passes ``device="cpu"``. The other setup branches of the JAX package
 (FFT and Chebyshev local solvers, the interface-first layout, the
 matrix dumps) raise ``NotImplementedError`` naming their slice in
-ROADMAP.md.
+ROADMAP.md; complex64 matrices raise ``TypeError`` (ROADMAP C11).
 """
 
 from __future__ import annotations
@@ -54,7 +56,8 @@ from hpddm_tpu_torch.dtypes import HPDDM_EPS, HPDDM_PEN, as_torch_dtype
 from hpddm_tpu_torch.ops.banded_solve import (BandedSolver,
                                               build_banded_solver,
                                               build_banded_solver_rcm)
-from hpddm_tpu_torch.ops.local_solve import LocalSolver, invert, promoted
+from hpddm_tpu_torch.ops.local_solve import (KINDS, LocalSolver,
+                                             factor_parts, invert, promoted)
 from hpddm_tpu_torch.ops.spmv import dia_canvas_moves, spmm, spmm_muT
 from hpddm_tpu_torch.options import Options
 from hpddm_tpu_torch.parallel.decomposition import Decomposition
@@ -532,9 +535,15 @@ class Schwarz:
                  optimized_mats: Optional[Sequence[MatrixCSR]] = None,
                  renumber: bool = False, prefix: str = "",
                  device=DEFAULT):
-        if optimized_mats is not None:
-            raise _not_ported("optimized_mats (ORAS/SORAS user matrices)",
-                              "ROADMAP queue A, slice 5")
+        if any(np.dtype(m.dtype) == np.complex64
+               for m in list(mats) + list(optimized_mats or [])):
+            raise TypeError(
+                "complex64 local matrices: the port runs complex128 (the "
+                "JAX package cannot carry a complex64 Krylov state through "
+                "its f64 decomposition, so native c64 has no parity "
+                "target: ROADMAP queue C, C11); for single precision use "
+                "the real-pair form, helmholtz.generate(as_real=True, "
+                "dtype=np.complex64)")
         self.opt = options if options is not None else Options()
         self.prefix = prefix
         self.device = as_device(device)
@@ -547,6 +556,12 @@ class Schwarz:
             neighbors, mappings, n_loc, d=d, renumber=renumber,
             dtype=dec_dt, device=self.device)
         self.mats = list(mats)
+        # user-supplied local matrices factorized in place of the plain
+        # restrictions by oras/soras/osm (e.g. Robin interface conditions
+        # for Helmholtz): the user-matrix branch of ``callNumfact``
+        # (HPDDM_schwarz.hpp:337-368)
+        self.optimized_mats = list(optimized_mats) if optimized_mats \
+            else None
         self.n_max = self.dec.n_max
         self.A = pack_local_matrices(mats, n_max=self.n_max, fmt=fmt,
                                      device=self.device)
@@ -798,20 +813,17 @@ class Schwarz:
         dt = self.A.values.dtype if dtype is None else as_torch_dtype(dtype)
         t0 = time.perf_counter()
         kind = opt.val("local_solver", prefix=pfx)
+        # oras/soras/osm factorize the user's optimized matrices where given
+        # (``hpddm_tpu/precond/schwarz.py:1144-1146,1223-1230``)
+        src = self.optimized_mats if self.optimized_mats is not None and \
+            variant in ("oras", "soras", "osm") else None
         if kind == "banded":
-            solver = self._build_banded(dt)
-        elif kind == "inv":
-            # one subdomain at a time: the dense copy of A_s lives only
-            # while its inverse is computed
-            factor = torch.empty((self.dec.S, self.n_max, self.n_max),
-                                 dtype=dt, device=self.device)
-            for s in range(self.dec.S):
-                factor[s] = invert(batched_dense_from(
-                    self.A, slice(s, s + 1))[0].to(dt))
-            solver = LocalSolver(kind="inv", factor=factor)
+            solver = self._build_banded(dt, src)
+        elif kind in KINDS:
+            solver = self._factorize(kind, dt, src)
         else:
             raise _not_ported(f"local_solver={kind!r}",
-                              "ROADMAP queue A, slice 5")
+                              "ROADMAP queue A, slice 5d")
         self._timed("factorize", t0)
 
         t0 = time.perf_counter()
@@ -825,7 +837,31 @@ class Schwarz:
                             coarse=coarse, variant=variant,
                             bc=self._boundary_conditions())
 
-    def _build_banded(self, dtype) -> BandedSolver:
+    def _factorize(self, kind: str, dtype, src) -> LocalSolver:
+        """The dense local factors of ``kind`` (inv, lu, chol, qr), one
+        subdomain at a time: the dense copy of a local matrix lives only
+        while its factor is computed. The matrices are the packed
+        operator's, or the optimized matrices ``src`` packed on the device
+        in the operator's way (the same values as the JAX package's dense
+        host pack, which would move S n_max^2 entries to the card)."""
+        S = self.dec.S
+        packed = self.A if src is None else pack_local_matrices(
+            src, n_max=self.n_max, fmt="auto", device=self.device)
+        factor = aux = None
+        for s in range(S):
+            A_s = batched_dense_from(packed, slice(s, s + 1))
+            f_s, a_s = factor_parts(A_s.to(dtype), kind)
+            if factor is None:
+                factor = f_s.new_empty((S,) + tuple(f_s.shape[1:]))
+                aux = None if a_s is None else \
+                    a_s.new_empty((S,) + tuple(a_s.shape[1:]))
+            factor[s] = f_s[0]
+            if aux is not None:
+                aux[s] = a_s[0]
+            del A_s, f_s, a_s
+        return LocalSolver(kind=kind, factor=factor, aux=aux)
+
+    def _build_banded(self, dtype, src=None) -> BandedSolver:
         """Exact block-tridiagonal local factors (ops/banded_solve.py):
         on the boxes of ``set_banded_shapes`` or ``set_grid_geometry``, else
         through RCM (``build_banded_solver_rcm``), ``banded_block_rows``
@@ -835,12 +871,13 @@ class Schwarz:
         (``renumber=True`` raises), so that check has nothing to test."""
         rows = int(self.opt.val("banded_block_rows", prefix=self.prefix))
         boxes = self._banded_boxes(required=False)
+        mats = self.mats if src is None else src
         if boxes is None:
             solver, self.rcm_bandwidths = build_banded_solver_rcm(
-                self.mats, self.n_max, dtype=dtype, rows_per_block=rows,
+                mats, self.n_max, dtype=dtype, rows_per_block=rows,
                 device=self.device)
             return solver
-        return build_banded_solver(self.mats, boxes, self.n_max, dtype=dtype,
+        return build_banded_solver(mats, boxes, self.n_max, dtype=dtype,
                                    rows_per_block=rows, device=self.device)
 
     def exchange_rhs(self, f: torch.Tensor) -> torch.Tensor:

@@ -5,7 +5,11 @@ also with a non-finite x[s, 0]) and the one-pass exchange (B5), at mu 1,
 (against the CPU, and with no plain-version call). The slice-5b shapes: B1
 at the 21 diagonals of 2D elasticity and the 7 of 3D diffusion, B4 at the
 H8 operator's rows of up to 80 slots, and the dense-coupling banded solve
-of 2D elasticity node slabs against the CPU.
+of 2D elasticity node slabs against the CPU. Slice 5c: B1 and B2 in
+complex128 (against the plain version's explicit real operations, with
+non-finite imaginary parts and offset tensors), the Helmholtz gmv, ORAS
+apply and solve on the card against the CPU port with no plain-version
+call, and B3, B4 and B5 raising on complex.
 
 This file imports no JAX, so it also runs on a machine without it:
 
@@ -693,3 +697,150 @@ def test_dense_coupling_banded_solve_on_card_matches_cpu(cuda, mu):
     want = cpu.solve(torch.as_tensor(b)).numpy()
     np.testing.assert_allclose(x, want, rtol=1e-12,
                                atol=1e-12 * np.abs(want).max())
+
+
+# slice 5c: complex128 B1 and B2, the Helmholtz path on the card
+
+def _complex(rng, shape, cuda):
+    return torch.complex(*(torch.as_tensor(rng.normal(size=shape),
+                                           device=cuda) for _ in range(2)))
+
+
+def _same_bits(y, ref):
+    """NaN at the same real and imaginary parts, the same bits elsewhere."""
+    yr, rr = torch.view_as_real(y), torch.view_as_real(ref)
+    nan = torch.isnan(rr)
+    return torch.equal(torch.isnan(yr), nan) and torch.equal(yr[~nan],
+                                                            rr[~nan])
+
+
+@pytest.mark.parametrize("mu", [1, 3, 5, 33])
+@pytest.mark.parametrize("S,n,offsets", [
+    (4, 2601, (-50, -1, 0, 1, 50)), (64, 4356, (-64, -1, 0, 1, 64)),
+    (3, 1000, (-3, 0, 7)), (2, 300, (-400, -1, 0, 350))] + EDGE_CASES)
+def test_complex_kernels_match_plain_bitwise(cuda, S, n, offsets, mu):
+    """c128 B1 (mu = 1) and B2 against the plain version's explicit real
+    operations, bitwise; then with a NaN and an inf in the imaginary parts
+    of two entries of x."""
+    rng = np.random.default_rng(n + mu)
+    vals = _complex(rng, (S, len(offsets), n), cuda)
+    x = _complex(rng, (S, n) if mu == 1 else (S, n, mu), cuda)
+    fn = kmod.dia_spmv if mu == 1 else kmod.dia_spmm
+    before = (kmod.launches, kmod.spmm_launches)
+    y = fn(vals, x, offsets)
+    assert (kmod.launches, kmod.spmm_launches) == (
+        before[0] + (mu == 1), before[1] + (mu > 1))
+    assert torch.equal(y, kmod.dia_spmv_reference(vals, x, offsets))
+    x[0, n // 2] = complex(0.5, float("nan"))
+    x[-1, n - 1] = complex(-1.5, float("inf"))
+    assert _same_bits(fn(vals, x, offsets),
+                      kmod.dia_spmv_reference(vals, x, offsets))
+
+
+def test_complex_kernels_on_offset_and_misaligned_tensors(cuda):
+    """c128 tensors that start one element (16 bytes) into their buffer
+    take the kernels bitwise; one that starts 8 bytes off a 16-byte
+    boundary raises (a complex128 entry is one 16-byte load)."""
+    S, n, offsets = 3, 1001, (-33, -1, 0, 1, 33)
+    rng = np.random.default_rng(8)
+    vals = _complex(rng, (S, len(offsets), n), cuda)
+    x = _complex(rng, (S, n, 3), cuda)
+
+    def offset(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+    ov = offset(vals)
+    assert torch.equal(kmod.dia_spmm(ov, offset(x), offsets),
+                       kmod.dia_spmv_reference(vals, x, offsets))
+    x1 = x[:, :, 0].contiguous()
+    assert torch.equal(kmod.dia_spmv(ov, offset(x1), offsets),
+                       kmod.dia_spmv_reference(vals, x1, offsets))
+    raw = torch.empty(2 * x1.numel() + 2, dtype=torch.float64, device=cuda)
+    bad = torch.empty(0, dtype=torch.complex128, device=cuda).set_(
+        raw.untyped_storage()[8:], 0, tuple(x1.shape))
+    assert bad.data_ptr() % 16 == 8
+    with pytest.raises(ValueError, match="16-byte"):
+        kmod.dia_spmv(vals, bad, offsets)
+
+
+def test_b3_b4_b5_raise_on_complex(cuda, unstr):
+    """The kernels that the Helmholtz path does not reach keep raising on
+    complex, naming their ROADMAP item; complex64 names C11."""
+    vals = torch.zeros((2, 3, 64), dtype=torch.complex128, device=cuda)
+    with pytest.raises(TypeError, match="B3c"):
+        kmod.dia_spmm_muT(vals, torch.zeros((2, 4, 64), dtype=vals.dtype,
+                                            device=cuda), (-1, 0, 1))
+    with pytest.raises(TypeError, match="C11"):
+        kmod.dia_spmv(vals.to(torch.complex64),
+                      torch.zeros((2, 64), dtype=torch.complex64,
+                                  device=cuda), (-1, 0, 1))
+    A = unstr.A
+    x = torch.zeros((unstr.dec.S, unstr.n_max, 1), dtype=torch.complex128,
+                    device=cuda)
+    with pytest.raises(TypeError, match="B4c"):
+        ek.ell_spmv(A.values.to(x.dtype), A.cols, x, A.payload)
+    with pytest.raises(TypeError, match="B5c"):
+        pk.pexchange(unstr.dec.pexch, x)
+
+
+@pytest.fixture(scope="module")
+def helm_ops():
+    """(CUDA state, CPU state, x) of helmholtz.generate(4, 24, 24, k=4,
+    eps=0.3), ORAS on the optimized matrices, c128."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+    from hpddm_tpu_torch.models import helmholtz
+    from hpddm_tpu_torch.options import Options
+
+    gen = helmholtz.generate(4, 24, 24, k=4.0, eps=0.3)
+    out = []
+    for device in ("cuda", "cpu"):
+        sch = Schwarz(gen.mats, gen.neighbors, gen.mappings, d=gen.d,
+                      options=Options(schwarz_method="oras"),
+                      optimized_mats=gen.oras_mats, device=device)
+        out.append(sch.build())
+    rng = np.random.default_rng(24)
+    x = rng.normal(size=(4, out[1].dec.n_max, 2)) + \
+        1j * rng.normal(size=(4, out[1].dec.n_max, 2))
+    return out[0], out[1], torch.as_tensor(x)
+
+
+@pytest.mark.parametrize("mu", [1, 2])
+def test_helmholtz_gmv_and_oras_apply_on_card_match_cpu(helm_ops, mu,
+                                                        monkeypatch):
+    """The complex gmv (B1 at mu = 1, B2 at mu = 2) and one ORAS apply on
+    the card against the CPU port, with no plain version on the card."""
+    from hpddm_tpu_torch.precond.schwarz import apply
+
+    card, cpu, x = helm_ops
+    calls = _count_plain_on_cuda(monkeypatch)
+    xc = x[:, :, :mu].contiguous()
+    xg = xc.to("cuda")
+    before = (kmod.launches, kmod.spmm_launches)
+    for fn in (gmv, apply):
+        got = fn(card, xg).cpu().numpy()
+        want = fn(cpu, xc).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-12,
+                                   atol=1e-12 * np.abs(want).max())
+    assert (kmod.launches, kmod.spmm_launches) == (
+        before[0] + (mu == 1), before[1] + (mu > 1))
+    assert calls[0] == 0
+
+
+def test_helmholtz_solve_never_runs_plain_on_cuda(helm_ops, monkeypatch):
+    """A c128 ORAS solve on the card: B1 launches, no plain-version call,
+    the CPU port's count."""
+    from hpddm_tpu_torch.options import Options
+    from hpddm_tpu_torch.solvers.krylov import solve
+
+    card, cpu, x = helm_ops
+    calls = _count_plain_on_cuda(monkeypatch)
+    f = scaled_exchange(cpu.dec, x[:, :, :1].contiguous())
+    opt = Options(tol=1e-8, gmres_restart=200, max_it=300)
+    before = kmod.launches
+    res = solve(card, f.to("cuda"), opt=opt)
+    assert kmod.launches > before and calls[0] == 0
+    assert res.iterations == solve(cpu, f, opt=opt).iterations
+    assert res.x.dtype == torch.complex128
