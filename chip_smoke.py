@@ -258,7 +258,6 @@ PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-
 def fail(msg):
     raise SystemExit(f"chip_smoke FAIL: {msg}")
 
@@ -497,7 +496,12 @@ def phase_card_scale():
     kmod.launches = kmod.spmm_launches = 0   # the main path's counts from here
     plain[0] = 0
     timings = {}
-    opt, state, f = build_problem(S, N, 10, np.float64, "cuda", timings)
+    sch = []
+    opt, state, f = build_problem(S, N, 10, np.float64, "cuda", timings,
+                                  schwarz=sch)
+    # phase 22 (b) rebuilds this setup (its GenEO vectors kept) for the
+    # reuse sequence; the object keeps no factors (no reuse option here)
+    grid = dict(sch=sch[0], timings=dict(timings))
     after_setup = kmod.launches
     spmm_setup = kmod.spmm_launches          # the coarse assembly's panel
     opt["tol"] = 1e-6
@@ -507,6 +511,7 @@ def phase_card_scale():
     spmm_launches = kmod.spmm_launches
     plain_calls = plain[0]
     rel = checked_residual(state, f, res)
+    grid.update(its=res.iterations, f=f)
     peak = torch.cuda.max_memory_allocated()
     per_solve = (launches - after_setup) // 4
     check(bool(res.converged.all()) and res.iterations < int(opt.val("max_it")),
@@ -563,7 +568,7 @@ def phase_card_scale():
     return kernel_record(
         "dia_spmv", "hpddm_tpu_torch/csrc/dia_spmv.cu",
         "hpddm_tpu/ops/pallas_spmv.py:98", launches, None, k_ms, p_ms,
-        b_ms, b_by, lib_ms), g_k, (opt, state, best, spmm_setup)
+        b_ms, b_by, lib_ms), g_k, (opt, state, best, spmm_setup), grid
 
 
 def random_ell(rng, S, n, w, band, pad_row=False):
@@ -1558,6 +1563,7 @@ def phase_banded_unstructured(cell, unstr_recs):
     opt = sch.opt
     opt["local_solver"] = "banded"
     opt["tol"] = 1e-6
+    cell["dense_vecs"] = list(sch._deflation_vectors)   # for phase 22 (a)
     # (a) banded on phase 8's dense-GenEO vectors
     state = sch.build()
     t_fac = sch.timings["factorize"]
@@ -1617,6 +1623,7 @@ def phase_banded_unstructured(cell, unstr_recs):
           f"{want}), true residual {true_b:.3e}")
     check(min(launches) > 0, f"launches on the path: {launches}")
     check(plain_calls == 0, f"{plain_calls} plain-version calls on the card")
+    cell["its_b"] = res_b.iterations
     recs = {r["name"]: r for r in unstr_recs}
     return [banded_record(recs["ell_spmv"], "ell_spmv banded RCM path",
                           launches[0]),
@@ -2649,6 +2656,412 @@ def phase_helmholtz():
     return recs
 
 
+def phase_slice_5a(cell, dia_rec, grid):
+    """Phase 22: slice 5a on the card. (a) the JAX package's production
+    unstructured configuration, the interface-first layout with RCM
+    banded factors and Lanczos GenEO on phase 8's mesh (phase 13 (b) in
+    that layout), and the layout with phase 8's dense-GenEO vectors and
+    inv; (b) the reuse sequence on phase 5's setup; (c) exchange_matrices
+    and restriction at 1024x1024/16; (d) the bf16 operator mirror on
+    phase 14's 2048x2048/16 GMV cell in f32; (e) the small options at the
+    oracle size against their CPU twins. Returns the B4 record of (a)'s
+    path and the B1 record of (b)'s."""
+    print("phase 22: slice 5a (interface-first layout, reuse, matrix "
+          "exchange and POU restriction, bf16 operator mirror, GenEO "
+          "estimate, dumps)")
+    recs = [phase_22a(cell)]
+    recs.append(phase_22b(grid, dia_rec))
+    phase_22c()
+    phase_22d()
+    phase_22e()
+    return recs
+
+
+def phase_22a(cell):
+    import torch
+    from hpddm_tpu_torch.examples.library_ops import ell_csr
+    from hpddm_tpu_torch.ops import ell_spmv as ek
+    from hpddm_tpu_torch.options import Options
+    from hpddm_tpu_torch.parallel import pexchange as pk
+    from hpddm_tpu_torch.parallel.ops import exchange
+    from hpddm_tpu_torch.precond.schwarz import (Schwarz, apply, deflation,
+                                                 gmv)
+    from hpddm_tpu_torch.solvers.krylov import solve
+    from hpddm_tpu_torch.timing import cold_events_ms, events_ms, timed
+
+    gen, f, sch8 = cell["gen"], cell["f"], cell["sch"]
+    S = len(gen.n_loc)
+    print(f"  (a) the production unstructured configuration: phase 8's "
+          f"512x512 mesh, S={S}, renumber=True, local_solver=banded (RCM), "
+          "Lanczos GenEO nu=10, deflated GMRES, f64, tol 1e-6")
+    plain = count_plain_calls()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in (ek, pk):                        # the path's counts from here
+        mod.launches = 0
+        mod.launches_by_mu.clear()
+    plain[0] = 0
+    opt = Options(schwarz_coarse_correction="deflated", geneo_nu=10,
+                  local_solver="banded", tol=1e-6)
+    t = time.perf_counter()
+    sch = Schwarz(gen.mats, gen.neighbors, gen.mappings, d=gen.d,
+                  options=opt, renumber=True, device="cuda")
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t
+    sch.solve_gevp(gen.neumann)
+    state = sch.build()
+    best, times, res = timed(lambda: solve(state, f, opt=opt), reps=3,
+                             warmup=1)
+    launches = (ek.launches, pk.launches)      # read just after the path
+    by_mu = dict(ek.launches_by_mu)
+    plain_calls = plain[0]
+    peak = torch.cuda.max_memory_allocated()
+    rel = checked_residual(state, f, res)
+    true_rel = true_residual(gen, res.x)
+    its, want = res.iterations, cell["its_b"]
+    dec = state.dec
+    tm = sch.timings
+    print(f"    n_max {dec.n_max}, m_max {dec.m_max} (the interface block), "
+          f"k_max {dec.k_max}, ELL width {state.A.values.shape[1]}, RCM "
+          f"bandwidths max {max(sch.rcm_bandwidths)} / min "
+          f"{min(sch.rcm_bandwidths)}, pexchange plan: "
+          f"{dec.pexch is not None}")
+    print(f"    {its} iterations (phase 13 (b), caller numbering: {want}), "
+          f"recomputed rel. residual {rel:.3e}, true global rel. residual "
+          f"{true_rel:.3e}; solve best of 3 {best:.4f} s "
+          f"({', '.join(f'{x:.4f}' for x in times)}), "
+          f"{best / its * 1e3:.3f} ms per iteration")
+    print(f"    setup seconds: decomposition + permuted packing {t_dec:.3f}, "
+          + ", ".join(f"{k} {v:.3f}" for k, v in tm.items()))
+    print(f"    peak device memory {peak / 2**30:.2f} GiB, "
+          f"{(peak - held) / 2**30:.2f} GiB above the {held / 2**30:.2f} GiB "
+          "held by earlier phases")
+    print(f"    launches on this path: ell_spmv (B4) {launches[0]} (by the "
+          f"panel width {by_mu}), pexchange (B5) {launches[1]}; "
+          f"plain-version calls on the card {plain_calls}")
+    check(abs(its - want) <= 1, f"renumbered production configuration: "
+          f"{its} iterations, phase 13 (b) {want}")
+    check(rel <= 1e-5 and true_rel <= 1e-5,
+          f"(a) residuals {rel:.3e} / {true_rel:.3e}")
+    check(launches[0] > 0 and launches[1] == 0,
+          f"(a) launches B4 {launches[0]}, B5 {launches[1]}")
+    check(plain_calls == 0, f"{plain_calls} plain-version calls on the card")
+
+    # B4 on the interface-first batch (its columns lose the RCM locality
+    # of the caller's numbering): against its plain version, bitwise, and
+    # timed beside its bound and torch.sparse.mm
+    A = state.A
+    rng = np.random.default_rng(22)
+    x1 = torch.as_tensor(rng.normal(size=(S, dec.n_max, 1)), device="cuda")
+    y = ek.ell_spmv(A.values, A.cols, x1, A.payload)
+    ref = ek.ell_spmv_payload_reference(A.values, A.payload, x1)
+    err4 = float((y - ref).abs().max())
+    check(torch.equal(y, ref), "ell_spmv differs from plain on the "
+          "interface-first batch")
+    k4 = cold_events_ms(lambda: ek.ell_spmv(A.values, A.cols, x1, A.payload))
+    p4 = cold_events_ms(lambda: ek.ell_spmv_payload_reference(
+        A.values, A.payload, x1), reps=10)
+    l4 = library_ms(ell_csr(A.values, A.cols), x1.reshape(-1, 1))
+    nnz = int(torch.count_nonzero(A.values))
+    b4_ms, b4_by = bound(
+        nnz * (x1.element_size() + A.payload.cols.element_size()) +
+        2 * x1.numel() * x1.element_size(), 2 * nnz, x1.dtype)
+    print(f"    ell_spmv (B4) on the interface-first batch (S={S}, w="
+          f"{A.values.shape[1]}, n={dec.n_max}) f64, mu=1: kernel "
+          f"{k4 * 1e3:.2f} us, plain {p4 * 1e3:.2f} us, torch.sparse.mm "
+          + ("not timed" if l4 is None else f"{l4 * 1e3:.2f} us")
+          + f" (L2 flushed); bound {b4_ms * 1e3:.2f} us ({b4_by}); bitwise "
+          f"equal to plain")
+    rec = kernel_record("ell_spmv renumbered production path",
+                        "hpddm_tpu_torch/csrc/ell_spmv.cu",
+                        "hpddm_tpu/ops/pallas_ell.py:133", launches[0], err4,
+                        k4, p4, b4_ms, b4_by, l4)
+
+    # the layout against caller numbering: the exchange and the gmv at
+    # mu = 1 and 4, B5 on phase 8's caller-numbered decomposition (as
+    # tools/bench_unstructured.py:113-122 times the JAX package's)
+    st8 = sch8.operator_state()
+    xa = torch.as_tensor(rng.normal(size=(S, dec.n_max, 1)), device="cuda")
+    t_apply = events_ms(lambda: apply(state, xa), 20)
+    t_local = events_ms(lambda: state.solver.solve(xa), 20)
+    t_defl = events_ms(lambda: deflation(state, xa), 20)
+    print(f"    one iteration's pieces at mu=1 (back to back): apply "
+          f"{t_apply * 1e3:.1f} us, of which the banded local solve "
+          f"{t_local * 1e3:.1f} us and a deflation {t_defl * 1e3:.1f} us")
+    for mu in (1, 4):
+        x = torch.as_tensor(rng.normal(size=(S, dec.n_max, mu)),
+                            device="cuda")
+        t_ren = events_ms(lambda: exchange(dec, x), 50)
+        t_b5 = events_ms(lambda: pk.pexchange(sch8.dec.pexch, x), 50)
+        t_g = events_ms(lambda: gmv(state, x), 50)
+        t_g8 = events_ms(lambda: gmv(st8, x), 50)
+        print(f"    mu={mu}: exchange renumbered {t_ren * 1e3:.2f} us, B5 on "
+              f"phase 8's caller numbering {t_b5 * 1e3:.2f} us; gmv "
+              f"renumbered {t_g * 1e3:.2f} us, caller numbering (B4 + B5) "
+              f"{t_g8 * 1e3:.2f} us (back to back, best of 5 x 50)")
+    # the renumbered exchange on the card against the CPU's, bitwise
+    from hpddm_tpu_torch.parallel.decomposition import Decomposition
+    dec_cpu = Decomposition.from_subdomains(
+        gen.neighbors, gen.mappings, gen.n_loc, d=gen.d, renumber=True,
+        device="cpu")
+    same = torch.equal(exchange(dec, x).cpu(), exchange(dec_cpu, x.cpu()))
+    print(f"    renumbered exchange at mu=4 bitwise equal to the CPU's: "
+          f"{same}")
+    check(same, "the renumbered exchange differs between card and CPU")
+    del dec_cpu
+
+    # phase 8's dense-GenEO vectors handed in (caller numbering) with inv
+    del state
+    opt2 = Options(schwarz_coarse_correction="deflated", geneo_nu=10,
+                   tol=1e-6)
+    sch2 = Schwarz(gen.mats, gen.neighbors, gen.mappings, d=gen.d,
+                   options=opt2, renumber=True, device="cuda")
+    sch2.set_vectors(cell["dense_vecs"])
+    st2 = sch2.build()
+    res2 = solve(st2, f, opt=opt2)
+    rel2 = checked_residual(st2, f, res2)
+    true2 = true_residual(gen, res2.x)
+    print(f"    with phase 8's dense-GenEO vectors (set_vectors) and inv: "
+          f"{res2.iterations} iterations (phase 8: {cell['its']}), "
+          f"recomputed rel. residual {rel2:.3e}, true global rel. residual "
+          f"{true2:.3e}; setup seconds "
+          + ", ".join(f"{k} {v:.3f}" for k, v in sch2.timings.items()))
+    check(abs(res2.iterations - cell["its"]) <= 1 and rel2 <= 1e-5 and
+          true2 <= 1e-5, f"renumbered inv on phase 8's vectors: "
+          f"{res2.iterations} iterations, residuals {rel2:.3e}/{true2:.3e}")
+    del st2, sch2, sch
+    return rec
+
+
+def phase_22b(grid, dia_rec):
+    import torch
+    from hpddm_tpu_torch.core.csr import MatrixCSR
+    from hpddm_tpu_torch.ops import dia_spmv as kmod
+    from hpddm_tpu_torch.options import Options
+    from hpddm_tpu_torch.solvers.krylov import solve
+
+    sch, f, want, t5 = (grid.pop(k) for k in ("sch", "f", "its", "timings"))
+    print("  (b) the reuse sequence: phase 5's setup (512x512, S=64, nu=10, "
+          "inv, deflated, f64) with reuse_preconditioner=1, three systems "
+          "scaled by 1.001, 1.002, 1.003")
+    plain = count_plain_calls()
+    torch.cuda.empty_cache()
+    opt = Options(schwarz_coarse_correction="deflated", geneo_nu=10,
+                  reuse_preconditioner=1, tol=1e-6)
+    sch.opt = opt
+    base = list(sch.mats)
+    kmod.launches = kmod.spmm_launches = 0      # the path's counts from here
+    plain[0] = 0
+    t = time.perf_counter()
+    state0 = sch.build()                        # the factorization kept
+    torch.cuda.synchronize()
+    t_full = time.perf_counter() - t
+    lines, ok = [], True
+    for c in (1.001, 1.002, 1.003):
+        t = time.perf_counter()
+        sch.update_matrices([MatrixCSR(m.scipy() * c) for m in base])
+        st = sch.build()
+        torch.cuda.synchronize()
+        t_re = time.perf_counter() - t
+        res = solve(st, f, opt=opt)
+        rel = checked_residual(st, f, res)
+        same = st.solver is state0.solver and st.coarse is state0.coarse
+        ok = ok and same and rel <= 1e-5 and abs(res.iterations - want) <= 2
+        lines.append(f"    x{c}: update_matrices + build {t_re:.3f} s, "
+                     f"factorization reused: {same}, {res.iterations} "
+                     f"iterations (phase 5: {want}), recomputed rel. "
+                     f"residual {rel:.3e}")
+    launches, plain_calls = kmod.launches, plain[0]
+    print(f"    full build (inv factors + coarse operator on the kept "
+          f"GenEO vectors) {t_full:.3f} s; phase 5's setup: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in t5.items()))
+    print("\n".join(lines))
+    print(f"    dia_spmv (B1) launches on the sequence {launches}, "
+          f"dia_spmm {kmod.spmm_launches} (the one full build's coarse "
+          f"panel); plain-version calls on the card {plain_calls}")
+    check(ok, "the reuse sequence failed its gates:\n" + "\n".join(lines))
+    check(launches > 0 and plain_calls == 0,
+          f"(b) B1 launches {launches}, plain calls {plain_calls}")
+    del state0, st, sch
+    return banded_record(dia_rec, "dia_spmv reuse sequence path", launches)
+
+
+def phase_22c():
+    import torch
+    from hpddm_tpu_torch.models import diffusion2d
+    from hpddm_tpu_torch.options import Options
+    from hpddm_tpu_torch.precond.schwarz import Schwarz
+
+    S, N = 16, 1024
+    t = time.perf_counter()
+    gen = diffusion2d.generate_uniform(S, N, N, overlap=2)
+    t_gen = time.perf_counter() - t
+    sch = Schwarz(gen.mats, gen.neighbors, gen.mappings, d=gen.d,
+                  options=Options(), device="cuda")
+    t = time.perf_counter()
+    sch.exchange_matrices()
+    torch.cuda.synchronize()
+    t_ex = time.perf_counter() - t
+    t = time.perf_counter()
+    changed = sch.restriction()
+    torch.cuda.synchronize()
+    t_rs = time.perf_counter() - t
+    d = sch.dec.unpermute(sch.dec.d).cpu().numpy()
+    dsum = np.zeros(N * N)
+    boolean = True
+    for s, (i0, i1, j0, j1) in enumerate(gen.boxes):
+        vals = d[s, : gen.n_loc[s]]
+        boolean = boolean and bool(np.all((vals == 0) | (vals == 1)))
+        jj, ii = np.meshgrid(np.arange(j0, j1), np.arange(i0, i1),
+                             indexing="ij")
+        np.add.at(dsum, (jj * N + ii).ravel(), vals)
+    print(f"  (c) exchange_matrices + restriction at generate_uniform({S}, "
+          f"{N}, {N}, overlap=2): generation {t_gen:.2f} s, "
+          f"exchange_matrices {t_ex:.2f} s, restriction {t_rs:.2f} s (the "
+          f"JAX package's budget for the two: 120 s); POU changed "
+          f"{changed}, boolean {boolean}, per-dof sum in "
+          f"[{dsum.min():g}, {dsum.max():g}]")
+    check(t_ex + t_rs < 120.0, f"(c) {t_ex + t_rs:.1f} s over 120 s")
+    check(changed and boolean and np.all(dsum == 1.0),
+          "(c) the rounded POU is not a boolean partition of unity")
+    del sch, gen
+
+
+def phase_22d():
+    import torch
+    from hpddm_tpu_torch.models import diffusion2d
+    from hpddm_tpu_torch.ops import dia_spmv as kmod
+    from hpddm_tpu_torch.options import Options
+    from hpddm_tpu_torch.precond.schwarz import Schwarz, gmv
+    from hpddm_tpu_torch.timing import cold_events_ms, events_ms
+
+    S, N = 16, 2048
+    gen = diffusion2d.generate_uniform(S, N, N, overlap=1, dtype=np.float32)
+    st = {}
+    for name, kw in (("f32", {}), ("bf16", dict(gmv_dtype="bfloat16"))):
+        sch = Schwarz(gen.mats, gen.neighbors, gen.mappings, d=gen.d,
+                      options=Options(**kw), device="cuda")
+        sch.set_grid_geometry(gen.boxes, N, N)
+        st[name] = sch.operator_state()
+    del gen, sch
+    A, Ab = st["f32"].A, st["bf16"].A
+    check(Ab.values_lp is not None and Ab.values_lp.dtype == torch.bfloat16
+          and Ab.canvas_hw is not None, "(d) no bf16 mirror on the canvas")
+    x = torch.as_tensor(np.random.default_rng(23).normal(
+        size=(S, A.values.shape[2], 1)).astype(np.float32), device="cuda")
+    yb = gmv(st["bf16"], x)
+    y32 = gmv(st["f32"], x)
+    rel = float(torch.linalg.norm((yb - y32).double())
+                / torch.linalg.norm(y32.double()))
+    g_bf = events_ms(lambda: gmv(st["bf16"], x), 50)
+    g_32 = events_ms(lambda: gmv(st["f32"], x), 50)
+    xs = x[:, :, 0].contiguous()
+    s_bf = cold_events_ms(lambda: kmod.dia_spmv_reference(
+        Ab.values_lp, xs, Ab.offsets))
+    s_32 = cold_events_ms(lambda: kmod.dia_spmv(A.values, xs, A.offsets))
+    by_bf = Ab.values_lp.numel() * 2 + 2 * xs.numel() * 4
+    by_32 = A.values.numel() * 4 + 2 * xs.numel() * 4
+    print(f"  (d) -hpddm_gmv_dtype bfloat16 on the 2048x2048/16 GMV cell "
+          f"(f32, slab exchange, canvas), a parity and timing check outside "
+          f"the main path: no kernel reads the bf16 mirror yet (ROADMAP "
+          f"queue B follow-up 8), so its product takes the plain DIA form "
+          f"as the JAX package routes it; relative difference from the "
+          f"full-precision gmv {rel:.3e}")
+    print(f"    gmv {g_bf * 1e3:.2f} us (bf16 mirror, plain form) against "
+          f"{g_32 * 1e3:.2f} us (B1 on f32 values), back to back; the SpMV "
+          f"alone with the L2 flushed: plain bf16 {s_bf * 1e3:.2f} us, B1 "
+          f"f32 {s_32 * 1e3:.2f} us; bytes read and written {by_bf / 1e6:.2f}"
+          f" MB (bf16 values) against {by_32 / 1e6:.2f} MB (f32 values)")
+    check(0 < rel < 1e-2, f"(d) bf16 gmv relative difference {rel:.3e}")
+    del st, A, Ab, x, yb, y32
+
+
+def host_coarse_matrix(state, mats):
+    """The state's coarse matrix, reassembled on the host in f64 from its
+    public fields by the setup's formula E = sum_s X_s^H D_s (A_s X_s), X
+    the exchanged columns D Z, with scipy's products where the card ran
+    B1/B2. Caller numbering (a decomposition that is not renumbered)."""
+    import torch
+    from hpddm_tpu_torch.parallel.ops import exchange
+
+    dec, co = state.dec, state.coarse
+    S, nu = dec.S, co.nu_max
+    Z = co.Z.to(torch.float64)
+    X0 = Z.new_zeros((S, dec.n_max, S * nu))
+    for s in range(S):
+        X0[s, :, s * nu:(s + 1) * nu] = dec.d[s, :, None] * Z[s]
+    X = exchange(dec, X0).cpu().numpy()
+    d = dec.d.double().cpu().numpy()
+    E = np.zeros((S * nu, S * nu))
+    for s, m in enumerate(mats):
+        n = m.n
+        E += (d[s, :n, None] * X[s, :n]).T @ (m.scipy() @ X[s, :n])
+    active = (np.arange(nu)[None, :]
+              < co.nu_loc.cpu().numpy()[:, None]).reshape(-1)
+    keep = active[:, None] & active[None, :]
+    return np.where(keep, E, np.eye(S * nu))
+
+
+def phase_22e():
+    import tempfile
+
+    import torch
+    from hpddm_tpu_torch.core.csr import MatrixCSR
+    from hpddm_tpu_torch.models import diffusion2d
+    from hpddm_tpu_torch.options import Options
+    from hpddm_tpu_torch.precond.schwarz import Schwarz
+    from hpddm_tpu_torch.solvers.krylov import solve
+
+    S, N = 4, 100
+    gen = diffusion2d.generate(S, N, N, overlap=1, with_neumann=True)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for dev in ("cuda", "cpu"):
+            opt = Options(schwarz_coarse_correction="deflated", geneo_nu=10,
+                          geneo_threshold=0.3, geneo_estimate_nu=1, tol=1e-6,
+                          dump_matrices=f"{tmp}/{dev}_mat",
+                          dump_eigenvectors=f"{tmp}/{dev}_eig",
+                          level_2_dump_matrix=f"{tmp}/{dev}_E.txt")
+            sch = Schwarz(gen.mats, gen.neighbors, gen.mappings, d=gen.d,
+                          options=opt, device=dev)
+            nu = sch.solve_gevp(gen.neumann)
+            st = sch.build()
+            f = np.zeros((S, sch.n_max, 1))
+            for s in range(S):
+                f[s, : gen.n_loc[s]] = gen.f[s]
+            res = solve(st, torch.as_tensor(f, device=dev), opt=opt)
+            out[dev] = (nu, res.iterations, sch, st)
+        nu, its, sch, st = out["cuda"]
+        print(f"  (e) oracle size (100x100, S=4), geneo_estimate_nu=1 with "
+              f"threshold 0.3: counts {nu.tolist()} on the card, "
+              f"{out['cpu'][0].tolist()} on the CPU; {its} iterations on "
+              f"the card, {out['cpu'][1]} on the CPU")
+        check(np.array_equal(nu, out["cpu"][0]) and its == out["cpu"][1],
+              "(e) estimate_nu counts or iterations differ from the CPU")
+        # the matrices are printed with 16 significant digits (%.15e, the
+        # reference's format), the vectors with np.savetxt's 19
+        mat_ok = eig_ok = True
+        for s in range(S):
+            back = MatrixCSR.from_file(f"{tmp}/cuda_mat_{s}.txt").scipy()
+            ref = gen.mats[s].scipy()
+            mat_ok = mat_ok and (back != 0).nnz == (ref != 0).nnz and \
+                abs(back - ref).max() <= 1e-15 * abs(ref).max()
+            V = np.loadtxt(f"{tmp}/cuda_eig_{s}.txt", skiprows=2, ndmin=2)
+            eig_ok = eig_ok and np.array_equal(V, sch._deflation_vectors[s])
+        E = MatrixCSR.from_file(f"{tmp}/cuda_E.txt").scipy().toarray()
+        E_h = host_coarse_matrix(st, sch.mats)
+        e_err = float(np.abs(E - E_h).max() / np.abs(E_h).max())
+        e_ok = E.shape == E_h.shape and e_err <= 1e-13
+        print(f"    dumps read back as the state: matrices (to the print's 16 "
+              f"digits) {mat_ok}, eigenvectors (exactly) {eig_ok}, E against "
+              f"the state's E reassembled on the host in f64 {e_ok} (max "
+              f"difference {e_err:.2e} of max|E|, gate 1e-13)")
+        check(mat_ok and eig_ok and e_ok,
+              "(e) a dump does not read back as its state")
+    print("    statistics():\n" + sch.statistics())
+
+
 def main():
     import torch
 
@@ -2701,7 +3114,7 @@ def main():
     lap("phase 3")
     phase_oracle()
     lap("phase 4")
-    dia, grid_gmv_ms, card = phase_card_scale()
+    dia, grid_gmv_ms, card, grid5 = phase_card_scale()
     dia["max_abs_err"] = max_err
     lap("phase 5")
     b4_err, b5_err = phase_kernels_unstructured()
@@ -2725,7 +3138,6 @@ def main():
     banded = phase_banded_grid(dia)
     lap("phase 12")
     banded += phase_banded_unstructured(unstr_cell, unstr)
-    del unstr_cell
     lap("phase 13")
     canvas = phase_gmv_cells()
     lap("phase 14")
@@ -2743,8 +3155,12 @@ def main():
     lap("phase 20")
     models += phase_helmholtz()
     lap("phase 21")
+    slice5a = phase_slice_5a(unstr_cell, dia, grid5)
+    del unstr_cell, grid5
+    lap("phase 22")
 
-    kernels = {"kernels": [dia, *spmm, *unstr, *banded, *canvas, *models]}
+    kernels = {"kernels": [dia, *spmm, *unstr, *banded, *canvas, *models,
+                           *slice5a]}
     print(f"wall {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps(kernels))

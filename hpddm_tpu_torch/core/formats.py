@@ -45,11 +45,18 @@ class BatchedDIA:
     gives the canvas form its shape. The JAX package also
     keeps pre-split per-diagonal planes (``values_planes``) to stop XLA
     from copying slices of the packed buffer inside a jitted loop; a torch
-    view of a plane costs nothing, so the port has no such field."""
+    view of a plane costs nothing, so the port has no such field.
+
+    values_lp: the bfloat16 mirror of ``values`` (``-hpddm_gmv_dtype
+    bfloat16``, ``hpddm_tpu/core/formats.py:51``), or None. Every product
+    of ``ops/spmv.spmm`` and ``spmm_muT`` reads it where it is set, in the
+    plain DIA form, accumulating in x's dtype; factorizations read
+    ``values``."""
     values: torch.Tensor                  # (S, ndiag, n_max), contiguous
     offsets: Tuple[int, ...]
     n_max: int
     canvas_hw: Optional[Tuple[int, int]] = None
+    values_lp: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass(frozen=True)

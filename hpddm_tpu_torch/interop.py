@@ -15,9 +15,14 @@ Keys of ``arrays`` (numpy arrays unless stated):
   package's ``GridPlan`` as a dict (``nbr``, ``sxw``, ``syw``, ``onehot``
   arrays, ints ``H``, ``W``, ``t``, ``S``, ``gx``, ``gy``, bool
   ``regular``, tuples ``sxw_s``, ``syw_s``), which routes the exchange
-  through the slab plan;
+  through the slab plan; ``perm``, ``iperm`` (arrays or None) and bool
+  ``renumbered`` (optional, False where absent) for the interface-first
+  layout, which gets no one-pass exchange plan;
 * local matrices: DIA as ``A_values`` (S, nd, n_max) and ``A_offsets``
-  (tuple) with ``A_canvas_hw`` (optional, the canvas (H, W)), or ELL as ``A_values`` (S, n_max, w) and ``A_cols`` (S, n_max,
+  (tuple) with ``A_canvas_hw`` (optional, the canvas (H, W)) and
+  ``A_values_lp`` (optional, the bf16 mirror of ``-hpddm_gmv_dtype``:
+  numpy has no bfloat16, so the caller passes its values in float32; they
+  are stored as bfloat16, exactly), or ELL as ``A_values`` (S, n_max, w) and ``A_cols`` (S, n_max,
   w), the JAX package's row-major layout; an ELL operator is stored
   slot-major with its kernel payload and gets the one-pass exchange plan,
   as ``Schwarz`` gives them;
@@ -114,6 +119,9 @@ def state_from_numpy(arrays: Dict[str, Any], device=DEFAULT,
         if_mask=b("if_mask"), ov_mask=b("ov_mask"), mult=r("mult"),
         partners=i("partners"), inv_map=i("inv_map"), is_if=b("is_if"),
         sub_shifts=tuple(arrays.get("sub_shifts", ())),
+        perm=None if arrays.get("perm") is None else i("perm"),
+        iperm=None if arrays.get("iperm") is None else i("iperm"),
+        renumbered=bool(arrays.get("renumbered", False)),
         **{k: int(arrays[k]) for k in DEC_INT_KEYS})
     grid = arrays.get("grid")
     if grid is not None:
@@ -129,13 +137,17 @@ def state_from_numpy(arrays: Dict[str, Any], device=DEFAULT,
             f("A_values").transpose(1, 2).contiguous(),
             t("A_cols", torch.int32).transpose(1, 2).contiguous(),
             int(arrays["n_max"]))
-        dec = dataclasses.replace(dec, pexch=build_plan(dec))
+        if not dec.renumbered:
+            dec = dataclasses.replace(dec, pexch=build_plan(dec))
     else:
         hw = arrays.get("A_canvas_hw")
+        lp = arrays.get("A_values_lp")
         A = BatchedDIA(values=f("A_values").contiguous(),
                        offsets=tuple(int(o) for o in arrays["A_offsets"]),
                        n_max=int(arrays["n_max"]),
-                       canvas_hw=None if hw is None else tuple(map(int, hw)))
+                       canvas_hw=None if hw is None else tuple(map(int, hw)),
+                       values_lp=None if lp is None else
+                       t("A_values_lp", torch.bfloat16).contiguous())
     coarse = None
     if arrays.get("Z") is not None:
         def opt(key, conv):

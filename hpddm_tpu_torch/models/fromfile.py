@@ -314,4 +314,4 @@ def spsd_neumann(gen: FromFileGenerated) -> List[MatrixCSR]:
     ``spsd_neumann``). Not ported yet."""
     raise NotImplementedError(
         "spsd_neumann is not ported to hpddm_tpu_torch yet (ROADMAP queue "
-        "A, slice 5: the matrix-file front end)")
+        "A, slice 5f: the matrix-file front end)")

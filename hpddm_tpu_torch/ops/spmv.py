@@ -18,6 +18,12 @@
   references. ``spmm_muT`` takes a panel with the right-hand-side axis
   leading (B3, ``dia_spmm_muT``, on the card), for ``gmv``'s multi-RHS
   grid branch.
+* ``-hpddm_gmv_dtype bfloat16``: a DIA batch with its bf16 mirror
+  (``values_lp``) takes the plain DIA form on the mirror on both devices,
+  accumulating in x's dtype, as the JAX package skips its Pallas kernel
+  when the mirror is set (``hpddm_tpu/ops/spmv.py:213-219``); the kernels
+  read the full-precision values only. A bf16-valued instantiation of
+  B1/B2 is ROADMAP queue B's follow-up.
 * ELL: a gather and a sum over each row's slots of the slot-major batch.
   Every ELL product on a CUDA tensor, any mu, goes through
   the hand-written kernel (ops/ell_spmv.py) with the batch's payload, as
@@ -41,9 +47,15 @@ from hpddm_tpu_torch.ops.dia_spmv import (dia_spmm, dia_spmm_muT,
 from hpddm_tpu_torch.ops.ell_spmv import ell_spmv, ell_spmv_reference
 
 
+def _hot_values(A: BatchedDIA) -> torch.Tensor:
+    """The value planes of the product: the bf16 mirror where it is set,
+    else the full values (``hpddm_tpu/ops/spmv.py:30-33``)."""
+    return A.values_lp if A.values_lp is not None else A.values
+
+
 def spmm_dia(A: BatchedDIA, x: torch.Tensor) -> torch.Tensor:
     """Plain version: y[s, i, :] = sum_k vals[s, k, i] * x[s, i + off_k, :]."""
-    return dia_spmv_reference(A.values, x, A.offsets)
+    return dia_spmv_reference(_hot_values(A), x, A.offsets)
 
 
 def dia_canvas_moves(offsets, Wd: int):
@@ -129,6 +141,8 @@ def spmm_dense(A: BatchedDense, x: torch.Tensor) -> torch.Tensor:
 def spmm(A, x: torch.Tensor) -> torch.Tensor:
     """Dispatch on format. x: (S, n_max, mu) -> (S, n_max, mu)."""
     if isinstance(A, BatchedDIA):
+        if A.values_lp is not None:
+            return spmm_dia(A, x)
         if x.shape[-1] == 1:
             y = dia_spmv(A.values, x[:, :, 0].contiguous(), A.offsets)
             return y[:, :, None]
@@ -144,5 +158,7 @@ def spmm_muT(A: BatchedDIA, xT: torch.Tensor) -> torch.Tensor:
     """The DIA product of a panel with the right-hand-side axis leading:
     xT (S, mu, n) -> (S, mu, n), through B3 (``dia_spmm_muT``) on the card
     and its plain version on the CPU; a canvas operator takes the flat
-    sums, as ``spmm``."""
+    sums, as ``spmm``; the bf16 mirror, where set, its plain version."""
+    if A.values_lp is not None:
+        return dia_spmm_muT_reference(A.values_lp, xT, A.offsets)
     return dia_spmm_muT(A.values, xT.contiguous(), A.offsets)

@@ -7,12 +7,21 @@ global *interface numbering* by union-find, so that the runtime exchange
 mathematically the reference's sum-reduce of duplicated unknowns
 (HPDDM_subdomain.hpp:115-130), with a fixed reduction order.
 
-The caller's local numbering is kept (``renumber=False``). Two optional
-plans route the exchange (parallel/ops.py): ``grid``, the uniform-grid
-slab plan (parallel/grid.py) that ``Schwarz.set_grid_geometry`` attaches,
-and ``pexch``, which sends the exchange of CUDA tensors through the
-one-pass kernel (parallel/pexchange.py); ``Schwarz`` attaches it for ELL
-operators.
+Two layouts: the caller's local numbering (``renumber=False``), or the
+interface-first layout (``renumber=True``, the JAX package's production
+unstructured configuration), where each subdomain's interface dofs come
+first, in slot order, then its interior, then its pads, so that the
+exchange reads and writes the contiguous block x[:, :m_max] only;
+``permute``/``unpermute`` move a batch between the two numberings. Two
+optional plans route the exchange of the caller's numbering
+(parallel/ops.py): ``grid``, the uniform-grid slab plan (parallel/grid.py)
+that ``Schwarz.set_grid_geometry`` attaches, and ``pexch``, which sends
+the exchange of CUDA tensors through the one-pass kernel
+(parallel/pexchange.py); ``Schwarz`` attaches it for ELL operators.
+
+Host helpers of the reference's ``Subdomain`` and ``Schwarz``:
+``restrict_pou`` (boolean rounding of a partition of unity),
+``Decomposition.global_mapping`` and ``Decomposition.distributed_csr``.
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ import functools
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 
 from hpddm_tpu_torch.device import DEFAULT, as_device
@@ -53,6 +63,71 @@ def uf_resolve(n: int, pairs_a: np.ndarray, pairs_b: np.ndarray) -> np.ndarray:
     return parent
 
 
+def _pair_links(neighbors, mappings, offsets) -> Tuple[np.ndarray, np.ndarray]:
+    """The flat slot pairs (offsets[s] + i, offsets[q] + j) that the
+    aligned neighbour lists link, each pair of subdomains once, from its
+    lower side."""
+    pa, pb = [], []
+    for s in range(len(neighbors)):
+        for q, idx in zip(neighbors[s], mappings[s]):
+            if q < s:
+                continue
+            pos = list(neighbors[q]).index(s)
+            pa.append(offsets[s] + np.asarray(idx, dtype=np.int64))
+            pb.append(offsets[q] + np.asarray(mappings[q][pos],
+                                              dtype=np.int64))
+    return (np.concatenate(pa) if pa else np.zeros(0, np.int64),
+            np.concatenate(pb) if pb else np.zeros(0, np.int64))
+
+
+def restrict_pou(neighbors, mappings, d_list) -> bool:
+    """Round a partition of unity to boolean ownership in place
+    (``Schwarz::restriction``, HPDDM_schwarz.hpp:277-333; the JAX
+    package's ``restrict_pou``, ``hpddm_tpu/parallel/decomposition.py:33``).
+
+    Every shared dof whose value is fractional, or whose copies do not
+    sum to 1, goes to the sharer with the strictly largest value (ties to
+    the higher subdomain id): that copy becomes 1, the others 0. The
+    classes are grouped by root with ``reduceat``, no loop over dofs.
+    Returns whether anything changed. d_list: per-subdomain (n_s,) arrays
+    in the caller's numbering, modified in place."""
+    S = len(neighbors)
+    n_loc = np.array([len(d) for d in d_list], dtype=np.int64)
+    offsets = np.concatenate([[0], np.cumsum(n_loc)])
+    roots = uf_resolve(int(offsets[-1]),
+                       *_pair_links(neighbors, mappings, offsets))
+    flat = np.concatenate([np.asarray(dd, dtype=np.float64)
+                           for dd in d_list])
+    eps = 1.0e-12
+    order = np.argsort(roots, kind="stable")      # ascending slot in a root
+    rs = roots[order]
+    starts = np.flatnonzero(np.concatenate([[True], rs[1:] != rs[:-1]]))
+    counts = np.diff(np.concatenate([starts, [len(rs)]]))
+    vals = flat[order]
+    gmax = np.maximum.reduceat(vals, starts)
+    gsum = np.add.reduceat(vals, starts)
+    frac = np.add.reduceat(
+        ((np.abs(vals - 1.0) > eps) & (np.abs(vals) > eps)).astype(np.int64),
+        starts) > 0
+    needs = (counts > 1) & (frac | (np.abs(gsum - 1.0) > eps))
+    if not np.any(needs):
+        return False
+    gid = np.repeat(np.arange(len(starts)), counts)
+    # the winner is the last member attaining the max: members ascend by
+    # flat slot, so by subdomain id
+    ismax = vals >= gmax[gid]
+    win = np.maximum.reduceat(np.where(ismax, np.arange(len(vals)), -1),
+                              starts)
+    new_vals = np.where(needs[gid], 0.0, vals)
+    new_vals[win[needs]] = 1.0
+    changed = bool(np.any(np.abs(new_vals - vals) > eps))
+    if changed:
+        flat[order] = new_vals
+        for s in range(S):
+            d_list[s][:] = flat[offsets[s]: offsets[s + 1]]
+    return changed
+
+
 @dataclasses.dataclass(frozen=True)
 class Decomposition:
     """Device-side decomposition state (leading axis = subdomains).
@@ -72,6 +147,12 @@ class Decomposition:
     pexch : the one-pass exchange plan (parallel/pexchange.ExchangePlan),
         or None.
     grid : the uniform-grid slab plan (parallel/grid.GridPlan), or None.
+    perm, iperm : (S, n_max) int64 of the interface-first layout:
+        perm[s, p] = caller index now at position p, iperm its inverse;
+        None in the caller's numbering (``renumbered`` False). There
+        if_idx is arange(m_max) on every subdomain: slot k lives at
+        position k, and slots past a subdomain's own interface count hold
+        interior dofs whose partner lists are empty.
 
     Index tensors are int64 (torch's index type); their values equal the
     JAX package's int32 arrays.
@@ -95,6 +176,9 @@ class Decomposition:
     sub_shifts: Tuple[int, ...] = ()
     pexch: Optional[object] = None
     grid: Optional[object] = None
+    perm: Optional[torch.Tensor] = None
+    iperm: Optional[torch.Tensor] = None
+    renumbered: bool = False
 
     @property
     def device(self) -> torch.device:
@@ -118,11 +202,9 @@ class Decomposition:
         elementwise with the other side's list; d[s] = partition of unity
         (None: 1/multiplicity). scaling as in the JAX package:
         "normalized" (d_i / sum over sharers), "given" or "multiplicity".
+        renumber: the interface-first layout
+        (``hpddm_tpu/parallel/decomposition.py:291-325``).
         """
-        if renumber:
-            raise NotImplementedError(
-                "renumber=True (the interface-first layout) is not ported "
-                "yet: ROADMAP queue A, slice 5")
         device = as_device(device)
         S = len(neighbors)
         n_loc = np.asarray(n_loc, dtype=np.int64)
@@ -225,8 +307,33 @@ class Decomposition:
                 for s in range(S):
                     d_arr[s, : n_loc[s]] = flat[offsets[s]: offsets[s + 1]]
 
+        perm = iperm = None
+        is_if = inv_map < m_max
+        if renumber:
+            # interface-first: slot k at position k, the interior next,
+            # the pads last; the per-dof arrays follow the permutation
+            perm = np.zeros((S, n_max), dtype=np.int64)
+            iperm = np.zeros((S, n_max), dtype=np.int64)
+            for s in range(S):
+                iface = if_idx[s, : m_count[s]]
+                interior = np.ones(n_loc[s], dtype=bool)
+                interior[iface] = False
+                order = np.concatenate([iface, np.nonzero(interior)[0],
+                                        np.arange(n_loc[s], n_max)])
+                perm[s] = order
+                iperm[s, order] = np.arange(n_max)
+                d_arr[s] = d_arr[s][order]
+                mult[s] = mult[s][order]
+                ov_mask[s] = ov_mask[s][order]
+            if_idx = np.broadcast_to(np.arange(m_max), (S, m_max)).copy()
+            inv_map = np.broadcast_to(
+                np.where(np.arange(n_max) < m_max, np.arange(n_max), m_max),
+                (S, n_max)).copy()
+            is_if = np.arange(n_max)[None, :] < m_count[:, None]
+
         def dev(a, dt=None):
-            return torch.as_tensor(a, dtype=dt, device=device)
+            return None if a is None else \
+                torch.as_tensor(a, dtype=dt, device=device)
 
         fdt = as_torch_dtype(dtype)
         return Decomposition(
@@ -234,9 +341,10 @@ class Decomposition:
             if_idx=dev(if_idx), if_gid=dev(if_gid), if_mask=dev(if_mask),
             ov_mask=dev(ov_mask), mult=dev(mult, fdt),
             partners=dev(partners), inv_map=dev(inv_map),
-            is_if=dev(inv_map < m_max),
+            is_if=dev(is_if),
             S=S, n_max=int(n_max), m_max=m_max, n_if=n_if,
-            n_global=n_global, k_max=int(k_max), sub_shifts=sub_shifts)
+            n_global=n_global, k_max=int(k_max), sub_shifts=sub_shifts,
+            perm=dev(perm), iperm=dev(iperm), renumbered=bool(renumber))
 
     # ------------------------------------------------------------------
     @functools.cached_property
@@ -251,16 +359,67 @@ class Decomposition:
         slot = (s_idx * self.m_max + k)[self.if_mask]
         return pos, slot
 
+    def _gather(self, x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        if x.dim() == 3:
+            idx = idx[:, :, None].expand(-1, -1, x.shape[2])
+        return torch.gather(x, 1, idx)
+
     def permute(self, x: torch.Tensor) -> torch.Tensor:
-        """Caller -> internal numbering: the identity on the general path."""
-        return x
+        """Caller -> internal (interface-first) numbering of x (S, n_max)
+        or (S, n_max, mu): one gather; the identity when not renumbered."""
+        return self._gather(x, self.perm) if self.renumbered else x
 
     def unpermute(self, x: torch.Tensor) -> torch.Tensor:
-        """Internal -> caller numbering: the identity on the general path."""
-        return x
+        """Internal -> caller numbering; the identity when not renumbered."""
+        return self._gather(x, self.iperm) if self.renumbered else x
+
+    def permute_host(self, v: np.ndarray, s: int) -> np.ndarray:
+        """Subdomain s's host vector (or (n_s, k) block) of length n_loc[s]
+        in the internal numbering."""
+        if not self.renumbered:
+            return v
+        order = self.perm[s].cpu().numpy()
+        return np.asarray(v)[order[order < len(v)]]
+
+    @staticmethod
+    def global_mapping(neighbors, mappings, n_loc):
+        """Owner-based contiguous global numbering (``Subdomain::
+        globalMapping``, HPDDM_subdomain.hpp:471-544): every dof class gets
+        the rank of its root (its smallest flat slot, so its lowest-id
+        sharer) among the sorted roots. Returns (list of (n_loc[s],) int64
+        arrays, n_global). A method of the JAX package's Decomposition that
+        reads none of its fields; a static method here."""
+        n_loc = np.asarray(n_loc, dtype=np.int64)
+        offsets = np.concatenate([[0], np.cumsum(n_loc)])
+        roots = uf_resolve(int(offsets[-1]),
+                           *_pair_links(neighbors, mappings, offsets))
+        uniq, inverse = np.unique(roots, return_inverse=True)
+        return ([inverse[offsets[s]: offsets[s + 1]].astype(np.int64)
+                 for s in range(len(neighbors))], len(uniq))
+
+    @staticmethod
+    def distributed_csr(mats, gids, d_list, n_global):
+        """The global CSR matrix sum_s R_s^T D_s A_s R_s of overlapping
+        local matrices (``Subdomain::distributedCSR``,
+        HPDDM_subdomain.hpp:549-656), d_list in the caller's numbering."""
+        acc = sp.csr_matrix((n_global, n_global))
+        for s, m in enumerate(mats):
+            n = m.n
+            R = sp.csr_matrix((np.ones(n), (np.asarray(gids[s]),
+                                            np.arange(n))),
+                              shape=(n_global, n))
+            D = sp.diags(np.asarray(d_list[s])[:n])
+            acc = acc + R @ D @ m.scipy(expand=True) @ R.T
+        return sp.csr_matrix(acc)
 
     @property
     def row_mask(self) -> torch.Tensor:
         """(S, n_max) bool, valid (non-padded) rows."""
         return (torch.arange(self.n_max, device=self.device)[None, :]
                 < self.n_loc[:, None])
+
+    def zero_pad(self, x: torch.Tensor) -> torch.Tensor:
+        """x (S, n_max, ...) with its padded rows set to zero."""
+        mask = self.row_mask
+        return torch.where(mask.reshape(mask.shape + (1,) * (x.dim() - 2)),
+                           x, x.new_zeros(()))

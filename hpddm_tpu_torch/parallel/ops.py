@@ -11,7 +11,10 @@ device, so no collective is needed (the JAX package's ``axis_name=None``):
   general path (``parallel/ops.py:184-237``). With a grid plan attached
   (``dec.grid``, ``Schwarz.set_grid_geometry``) every tensor takes the
   slab exchange (parallel/grid.py) first, as in the JAX package
-  (``parallel/ops.py:198-200``). Else, with a one-pass plan attached
+  (``parallel/ops.py:198-200``). An interface-first decomposition
+  (``dec.renumbered``) reduces the contiguous block x[:, :m_max] and keeps
+  the rest (``parallel/ops.py:201-205``): no full-vector gather or
+  scatter. Else, with a one-pass plan attached
   (``dec.pexch``, ELL operators) a CUDA tensor takes the one-pass kernel
   (parallel/pexchange.py), as the JAX package sends it to its Pallas
   exchange (``parallel/ops.py:224-230``); the result is the same to the
@@ -61,8 +64,13 @@ def exchange(dec: Decomposition, x: torch.Tensor) -> torch.Tensor:
     x: (S, n_max, mu). Afterwards every copy of a shared dof holds the sum
     of all copies; interior dofs are untouched. Returns a new contiguous
     tensor."""
-    if dec.grid is not None:
+    if dec.grid is not None and not dec.renumbered:
         return grid_exchange(dec.grid, x)
+    if dec.renumbered:
+        # slots past a subdomain's interface count hold interior values
+        # with no partners: they pass through unchanged
+        m = dec.m_max
+        return torch.cat([_interface_reduce(dec, x[:, :m]), x[:, m:]], dim=1)
     if dec.pexch is not None and x.is_cuda:
         return pexchange(dec.pexch, x.contiguous())
     mu = x.shape[-1]

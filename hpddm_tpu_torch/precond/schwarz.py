@@ -30,11 +30,17 @@ boxes or through RCM) local factors, of the user's optimized matrices
 Galerkin coarse operator, assembled dense or
 neighbour-block-sparse, inverted for a replicated direct solve or kept
 for the nested solves of the level-2 options (``level_2_*``, ``level_3_*``
-and ``level_4+``). It puts everything on the card unless the caller
-passes ``device="cpu"``. The other setup branches of the JAX package
-(FFT and Chebyshev local solvers, the interface-first layout, the
-matrix dumps) raise ``NotImplementedError`` naming their slice in
-ROADMAP.md; complex64 matrices raise ``TypeError`` (ROADMAP C11).
+and ``level_4+``). Slice 5a: the interface-first layout
+(``renumber=True``: every setup path reads the matrices through
+``_permuted``), the reuse of a factorization with ``update_matrices``
+(``-hpddm_reuse_preconditioner``), ``exchange_matrices``,
+``restriction``, ``statistics``, ``-hpddm_geneo_estimate_nu``, the dumps
+(``dump_matrices``, ``dump_eigenvectors``,
+``-hpddm_level_2_dump_matrix``) and the bf16 value mirror of the
+operator product (``-hpddm_gmv_dtype bfloat16``). It puts everything on
+the card unless the caller passes ``device="cpu"``. The FFT and
+Chebyshev local solvers raise ``NotImplementedError`` naming slice 5d;
+complex64 matrices raise ``TypeError`` (ROADMAP C11).
 """
 
 from __future__ import annotations
@@ -60,7 +66,8 @@ from hpddm_tpu_torch.ops.local_solve import (KINDS, LocalSolver,
                                              factor_parts, invert, promoted)
 from hpddm_tpu_torch.ops.spmv import dia_canvas_moves, spmm, spmm_muT
 from hpddm_tpu_torch.options import Options
-from hpddm_tpu_torch.parallel.decomposition import Decomposition
+from hpddm_tpu_torch.parallel.decomposition import (Decomposition,
+                                                    restrict_pou)
 from hpddm_tpu_torch.parallel.grid import (build_grid_plan,
                                            grid_exchange_muT)
 from hpddm_tpu_torch.parallel.ops import exchange, scaled_exchange
@@ -465,8 +472,11 @@ def compute_residual(state: SchwarzState, x: torch.Tensor, f: torch.Tensor,
     """Independent residual recomputation (HPDDM_schwarz.hpp:761-803).
 
     Returns (norm_b, norm_r) per RHS, POU-weighted so overlapping dofs
-    count once; Dirichlet-penalty rows are filtered like the reference."""
+    count once; Dirichlet-penalty rows are filtered like the reference.
+    x and f are in the caller's numbering."""
     dec = state.dec
+    x = dec.permute(x)
+    f = dec.permute(f)
     r = gmv(state, x) - f
     w = dec.d[:, :, None]
     f_eff = torch.where(torch.abs(f) > HPDDM_EPS * HPDDM_PEN, f / HPDDM_PEN, f)
@@ -502,6 +512,17 @@ def neumann_regularization(neumann: Sequence[MatrixCSR]) -> float:
         d = np.abs(m.scipy().diagonal())
         means.append(d[d <= PENALTY_RATIO * np.median(d)].mean())
     return 1e-8 * float(np.mean(means))
+
+
+def dump_eigenpairs(path: str, lam: np.ndarray, V: np.ndarray) -> None:
+    """-hpddm_dump_eigenvectors' file of one subdomain: a comment line,
+    the eigenvalues on one line (``%.15e``), then the vectors' rows
+    (``np.savetxt``), as the JAX package writes it
+    (``hpddm_tpu/precond/schwarz.py:923-934``)."""
+    with open(path, "w") as fh:
+        fh.write("# GenEO eigenpairs (lambda then vector columns)\n")
+        fh.write(" ".join(f"{v:.15e}" for v in lam) + "\n")
+        np.savetxt(fh, V)
 
 
 # ----------------------------------------------------------------------
@@ -547,15 +568,16 @@ class Schwarz:
         self.opt = options if options is not None else Options()
         self.prefix = prefix
         self.device = as_device(device)
-        if self.opt.val("gmv_dtype") not in (None, "same"):
-            raise _not_ported("-hpddm_gmv_dtype", "ROADMAP queue B, cells")
         n_loc = [m.n for m in mats]
         dec_dt = np.float64 if not mats or np.iscomplexobj(
             np.zeros(0, mats[0].dtype)) else np.dtype(mats[0].dtype).type
         self.dec = Decomposition.from_subdomains(
             neighbors, mappings, n_loc, d=d, renumber=renumber,
             dtype=dec_dt, device=self.device)
-        self.mats = list(mats)
+        self.mats = list(mats)             # caller numbering (dumps, stats)
+        self.neighbors = [list(nb) for nb in neighbors]
+        self.mappings = [[np.asarray(m, dtype=np.int64) for m in ms]
+                         for ms in mappings]
         # user-supplied local matrices factorized in place of the plain
         # restrictions by oras/soras/osm (e.g. Robin interface conditions
         # for Helmholtz): the user-matrix branch of ``callNumfact``
@@ -563,9 +585,12 @@ class Schwarz:
         self.optimized_mats = list(optimized_mats) if optimized_mats \
             else None
         self.n_max = self.dec.n_max
-        self.A = pack_local_matrices(mats, n_max=self.n_max, fmt=fmt,
-                                     device=self.device)
+        self.A = pack_local_matrices(self._permuted(mats), n_max=self.n_max,
+                                     fmt=fmt, device=self.device)
+        self._apply_gmv_dtype()
         self._try_pexchange_plan()
+        self._state: Optional[SchwarzState] = None
+        self._bc_cache = None
         self._deflation_vectors: Optional[List[np.ndarray]] = None
         self._banded_shapes: Optional[List[tuple]] = None
         self._grid_geometry: Optional[tuple] = None
@@ -578,8 +603,9 @@ class Schwarz:
         ELL operator, as ``_try_pexchange_plan`` of the JAX package
         (``hpddm_tpu/precond/schwarz.py:643-663``); ``exchange`` runs it on
         CUDA tensors. DIA (stencil) operators keep the plain exchange, as
-        they do in the JAX package."""
-        if isinstance(self.A, BatchedELL):
+        they do in the JAX package; so does the interface-first layout,
+        whose exchange touches the contiguous interface block only."""
+        if isinstance(self.A, BatchedELL) and not self.dec.renumbered:
             self.dec = dataclasses.replace(self.dec,
                                            pexch=build_plan(self.dec))
 
@@ -588,15 +614,19 @@ class Schwarz:
         self.timings[phase] = time.perf_counter() - t0
 
     def _boundary_conditions(self) -> Optional[torch.Tensor]:
-        """(S, n_max) Dirichlet-row diagonal values (0 elsewhere); None when
-        no boundary rows exist. Row i is a boundary row when its diagonal is
-        penalty-scale (>= HPDDM_EPS * HPDDM_PEN) or when its off-diagonals
-        vanish and the diagonal is ~1 (an eliminated identity row). A host
-        pass over the CSR matrices, once per build."""
+        """(S, n_max) Dirichlet-row diagonal values (0 elsewhere), internal
+        numbering; None when no boundary rows exist. Row i is a boundary
+        row when its diagonal is penalty-scale (>= HPDDM_EPS * HPDDM_PEN)
+        or when its off-diagonals vanish and the diagonal is ~1 (an
+        eliminated identity row). A host pass over the CSR matrices, once
+        per matrix set (``update_matrices`` clears it)."""
+        if self._bc_cache is not None:
+            return self._bc_cache[0]
+        mats = self._permuted(self.mats)
         bc = np.zeros((self.dec.S, self.n_max),
-                      dtype=np.asarray(self.mats[0].scipy().data).dtype)
+                      dtype=np.asarray(mats[0].scipy().data).dtype)
         found = False
-        for s, m in enumerate(self.mats):
+        for s, m in enumerate(mats):
             csr = m.scipy(expand=True).tocsr()
             n = csr.shape[0]
             diag = np.asarray(csr.diagonal())
@@ -608,13 +638,31 @@ class Schwarz:
             if rows.any():
                 found = True
                 bc[s, :n][rows] = diag[rows]
-        return torch.as_tensor(bc, device=self.device) if found else None
+        self._bc_cache = (torch.as_tensor(bc, device=self.device)
+                          if found else None,)
+        return self._bc_cache[0]
+
+    def _permuted(self, mats: Sequence[MatrixCSR]) -> List[MatrixCSR]:
+        """The local matrices in the decomposition's internal numbering: a
+        symmetric permutation on the host in the interface-first layout
+        (``hpddm_tpu/precond/schwarz.py:831``), the matrices themselves
+        otherwise."""
+        if not self.dec.renumbered:
+            return list(mats)
+        perm = self.dec.perm.cpu().numpy()
+        out = []
+        for s, m in enumerate(mats):
+            p = perm[s][perm[s] < m.n]
+            out.append(MatrixCSR(m.scipy(expand=True)[p, :][:, p]))
+        return out
 
     # -- HPDDM-style hooks -------------------------------------------------
     def set_vectors(self, vectors: Sequence[np.ndarray]) -> None:
-        """User deflation vectors (``setVectors``): vectors[s] is (n_s, nu_s)."""
+        """User deflation vectors (``setVectors``): vectors[s] is (n_s,
+        nu_s) in the caller's numbering, kept in the internal one."""
         self._deflation_vectors = [
-            np.atleast_2d(np.asarray(v)).reshape(self.mats[s].n, -1)
+            self.dec.permute_host(
+                np.atleast_2d(np.asarray(v)).reshape(self.mats[s].n, -1), s)
             for s, v in enumerate(vectors)]
 
     def solve_gevp(self, neumann: Sequence[MatrixCSR], nu=None,
@@ -637,6 +685,15 @@ class Schwarz:
         The dense pencil runs one subdomain at a time, each Neumann matrix
         packed dense as the JAX package packs them, so the device holds a
         few n_max^2 blocks, not S of them. Lanczos: ``_solve_gevp_lanczos``.
+
+        -hpddm_geneo_estimate_nu with -hpddm_geneo_threshold
+        (HPDDM_schwarz.hpp:686-703; ``hpddm_tpu/precond/schwarz.py:880-911``):
+        the eigensolve is sized at max(4 nu, 16) pairs (or at the option's
+        value where it is above 1, capped at n_max) and each subdomain
+        keeps the count of its eigenvalues below the threshold, clipped to
+        [1, that size]. -hpddm_dump_eigenvectors writes each subdomain's
+        kept eigenvalues and vectors (internal numbering) to
+        ``<name>_<s>.txt``.
         """
         from hpddm_tpu_torch.precond.geneo import (scale_into_overlap,
                                                    select_nu,
@@ -651,9 +708,10 @@ class Schwarz:
             else np.asarray(nu, dtype=np.int64)
         nu_max_req = int(max(1, nu_req.max()))
         threshold = opt.val("geneo_threshold", prefix=pfx)
-        if int(opt.val("geneo_estimate_nu", prefix=pfx) or 0):
-            raise _not_ported("-hpddm_geneo_estimate_nu",
-                              "ROADMAP queue A, slice 5")
+        estimate = int(opt.val("geneo_estimate_nu", prefix=pfx) or 0)
+        if estimate and threshold is not None:
+            cap = estimate if estimate > 1 else max(4 * nu_max_req, 16)
+            nu_max_req = int(min(self.n_max, max(nu_max_req, cap)))
         if method == "auto":
             method = "lanczos" if (self.n_max > 6000 or
                                    opt.val("local_solver", prefix=pfx)
@@ -665,6 +723,7 @@ class Schwarz:
         else:
             lam_np = np.empty((S, nu_max_req))
             V_np = np.empty((S, self.n_max, nu_max_req))
+            neumann = self._permuted(neumann)
             for s in range(S):
                 sub = slice(s, s + 1)
                 A_neu = pack_local_matrices([neumann[s]], n_max=self.n_max,
@@ -676,6 +735,12 @@ class Schwarz:
                                           nu_max_req)
                 lam_np[s] = lam[0].cpu().numpy()
                 V_np[s] = V[0].cpu().numpy()
+        if estimate and threshold is not None:
+            nu_req = np.clip((lam_np < float(threshold)).sum(axis=1), 1,
+                             nu_max_req).astype(np.int64)
+            if int(opt.val("verbosity", 0)) > 0:
+                print(f"GenEO estimate_nu: {nu_req.tolist()} "
+                      f"eigenvalues below {float(threshold):g}")
         nu_loc, V_np = select_nu(
             lam_np, nu_req,
             threshold=float(threshold) if threshold is not None else None,
@@ -687,6 +752,12 @@ class Schwarz:
             for s in range(S)]
         # HPDDM writes the attained count back into the option map
         self.opt["geneo_nu"] = int(nu_loc.max(initial=1))
+        dump = opt.val("dump_eigenvectors")
+        if dump:
+            for s in range(S):
+                dump_eigenpairs(f"{dump}_{s}.txt",
+                                lam_np[s, : int(nu_loc[s])],
+                                V_np[s, : self.mats[s].n, : int(nu_loc[s])])
         self._timed("geneo", t0)
         return nu_loc
 
@@ -722,15 +793,16 @@ class Schwarz:
             raise _not_ported(f"Lanczos GenEO with the {kind!r} inner solve",
                               "ROADMAP queue A, slice 5d")
         t0 = time.perf_counter()
+        # the shift from the caller's numbering: its mean sums the
+        # diagonal in that order, as the JAX package's
+        eps_reg = neumann_regularization(neumann)
+        neumann = self._permuted(neumann)
         A_neu = pack_local_matrices(neumann, n_max=self.n_max, fmt="auto",
                                     pad_identity=True, device=self.device)
         mask = (dec.ov_mask.to(dec.d.dtype) * dec.d)[:, :, None]
 
         def apply_B(x):
             return mask * spmm(self.A, mask * x)
-
-        # diagonal regularization of the (possibly singular) Neumann matrix
-        eps_reg = neumann_regularization(neumann)
 
         def apply_Aneu(x):
             return spmm(A_neu, x) + eps_reg * x
@@ -802,14 +874,27 @@ class Schwarz:
         vectors (default: the operator's). The JAX package's mixed
         precision: the operator and the Krylov vectors stay in their dtype
         and each product with a factor is promoted
-        (``hpddm_tpu/precond/schwarz.py:1230-1237``)."""
+        (``hpddm_tpu/precond/schwarz.py:1230-1237``).
+
+        -hpddm_reuse_preconditioner: the object keeps the state it
+        builds, and the next build keeps its factorization, its coarse
+        operator and its boundary rows, with the current operator A
+        (``update_matrices``) and variant (HPDDM_schwarz.hpp:364-366).
+        Without the option nothing is kept (the JAX package keeps every
+        state), so a setup object held past its solve holds no factors.
+        -hpddm_dump_matrices writes each
+        local matrix, caller numbering, to ``<name>_<s>.txt`` after a build
+        with a dense local solver (inv, lu, chol, qr), as the JAX package
+        (``hpddm_tpu/precond/schwarz.py:1243-1247``)."""
         opt = self.opt
         pfx = self.prefix
         variant = opt.val("schwarz_method", prefix=pfx)
-        for key in ("reuse_preconditioner", "dump_matrices",
-                    "dump_eigenvectors"):
-            if opt.val(key):
-                raise _not_ported(f"-hpddm_{key}", "ROADMAP queue A, slice 5")
+        reuse = bool(int(opt.val("reuse_preconditioner", 0)))
+        if self._state is not None and reuse:
+            self._state = dataclasses.replace(self._state, A=self.A,
+                                              variant=variant)
+            return self._state
+        self._state = None        # the old factors go before the new ones
         dt = self.A.values.dtype if dtype is None else as_torch_dtype(dtype)
         t0 = time.perf_counter()
         kind = opt.val("local_solver", prefix=pfx)
@@ -833,9 +918,15 @@ class Schwarz:
             coarse = self._build_coarse(correction, dt)
         self._timed("coarse", t0)
 
-        return SchwarzState(dec=self.dec, A=self.A, solver=solver,
-                            coarse=coarse, variant=variant,
-                            bc=self._boundary_conditions())
+        state = SchwarzState(dec=self.dec, A=self.A, solver=solver,
+                             coarse=coarse, variant=variant,
+                             bc=self._boundary_conditions())
+        self._state = state if reuse else None
+        dump = opt.val("dump_matrices")
+        if dump and kind in KINDS:
+            for s, m in enumerate(self.mats):
+                m.dump(f"{dump}_{s}.txt")
+        return state
 
     def _factorize(self, kind: str, dtype, src) -> LocalSolver:
         """The dense local factors of ``kind`` (inv, lu, chol, qr), one
@@ -846,7 +937,8 @@ class Schwarz:
         host pack, which would move S n_max^2 entries to the card)."""
         S = self.dec.S
         packed = self.A if src is None else pack_local_matrices(
-            src, n_max=self.n_max, fmt="auto", device=self.device)
+            self._permuted(src), n_max=self.n_max, fmt="auto",
+            device=self.device)
         factor = aux = None
         for s in range(S):
             A_s = batched_dense_from(packed, slice(s, s + 1))
@@ -866,23 +958,31 @@ class Schwarz:
         on the boxes of ``set_banded_shapes`` or ``set_grid_geometry``, else
         through RCM (``build_banded_solver_rcm``), ``banded_block_rows``
         grid rows per block, the factor method chosen by
-        ``build_banded_solver``'s "auto" rule. The JAX package refuses grid
-        boxes on its interface-first layout; the port has no such layout
-        (``renumber=True`` raises), so that check has nothing to test."""
+        ``build_banded_solver``'s "auto" rule. Grid boxes need the caller's
+        numbering and raise ``ValueError`` on the interface-first layout, as
+        in the JAX package (``hpddm_tpu/precond/schwarz.py:1138-1141``); RCM
+        reads the permuted matrices, its permutation riding the solver's
+        slot gathers."""
         rows = int(self.opt.val("banded_block_rows", prefix=self.prefix))
         boxes = self._banded_boxes(required=False)
+        if boxes is not None and self.dec.renumbered:
+            raise ValueError("local_solver=banded with grid geometry "
+                             "requires the grid-ordered (non-renumbered) "
+                             "layout")
         mats = self.mats if src is None else src
         if boxes is None:
             solver, self.rcm_bandwidths = build_banded_solver_rcm(
-                mats, self.n_max, dtype=dtype, rows_per_block=rows,
-                device=self.device)
+                self._permuted(mats), self.n_max, dtype=dtype,
+                rows_per_block=rows, device=self.device)
             return solver
         return build_banded_solver(mats, boxes, self.n_max, dtype=dtype,
                                    rows_per_block=rows, device=self.device)
 
     def exchange_rhs(self, f: torch.Tensor) -> torch.Tensor:
-        """Make a (possibly inconsistent) RHS consistent."""
-        return scaled_exchange(self.dec, f)
+        """Make a (possibly inconsistent) RHS consistent, in the caller's
+        numbering (examples/schwarz.cpp's ``A.exchange<true>(f, mu)``)."""
+        return self.dec.unpermute(scaled_exchange(self.dec,
+                                                  self.dec.permute(f)))
 
     def set_banded_shapes(self, shapes) -> None:
         """Declare the block-tridiagonal structure of the local matrices
@@ -911,11 +1011,14 @@ class Schwarz:
         of through RCM; on a uniform-box grid whose boxes fill n_max the
         exchange switches to the slab plan (parallel/grid.py), and a
         seam-safe DIA operator is annotated for the canvas form
-        (``hpddm_tpu/precond/schwarz.py:1284-1297``)."""
+        (``hpddm_tpu/precond/schwarz.py:1284-1297``). The interface-first
+        layout keeps its own exchange and the flat form: no slab plan, no
+        canvas."""
         self._grid_geometry = (list(boxes), int(Nx), int(Ny))
-        plan = build_grid_plan(boxes, device=self.device)
-        if plan is not None and plan.H * plan.W == self.dec.n_max:
-            self.dec = dataclasses.replace(self.dec, grid=plan)
+        if not self.dec.renumbered:
+            plan = build_grid_plan(boxes, device=self.device)
+            if plan is not None and plan.H * plan.W == self.dec.n_max:
+                self.dec = dataclasses.replace(self.dec, grid=plan)
         self._try_canvas_annotate()
 
     def _try_canvas_annotate(self) -> None:
@@ -929,7 +1032,8 @@ class Schwarz:
         (``_canvas_symmetry``) is off unless an environment variable asks
         for it and measured slower there; the port leaves it out."""
         geo = self._grid_geometry
-        if geo is None or not isinstance(self.A, BatchedDIA) or \
+        if geo is None or self.dec.renumbered or \
+                not isinstance(self.A, BatchedDIA) or \
                 self.A.canvas_hw is not None:
             return
         hw = {(j1 - j0, i1 - i0) for (i0, i1, j0, j1) in geo[0]}
@@ -958,6 +1062,133 @@ class Schwarz:
         ``compute_residual`` only (SpMV benchmarks, matrix-free use)."""
         return SchwarzState(dec=self.dec, A=self.A, solver=None,
                             coarse=None, variant="none")
+
+    def _apply_gmv_dtype(self) -> None:
+        """-hpddm_gmv_dtype bfloat16: attach the bf16 mirror of a DIA
+        operator's values (``hpddm_tpu/precond/schwarz.py:665-681``), which
+        every product of ``ops/spmv.spmm`` then reads, in the plain DIA
+        form. The JAX package's docstring says that setup keeps reading
+        the full values; its code does not: the Galerkin assembly, the
+        block-sparse blocks and Lanczos GenEO's B all go through ``spmm``
+        and read the mirror, and so does the port, for parity (ROADMAP
+        queue C, C14). Factorizations and the dense GenEO pencil read the
+        full values. The JAX package's canvas planes taken from the mirror
+        (``:683-701``) have no counterpart: a canvas operator takes the
+        flat product here."""
+        if not isinstance(self.A, BatchedDIA) or \
+                self.opt.val("gmv_dtype") in (None, "same"):
+            return
+        self.A = dataclasses.replace(
+            self.A, values_lp=self.A.values.to(torch.bfloat16))
+
+    def update_matrices(self, mats: Sequence[MatrixCSR],
+                        fmt: str = "auto") -> None:
+        """Replace the local matrices for the next solve
+        (``hpddm_tpu/precond/schwarz.py:1391-1401``): repacked in the
+        internal numbering, the boundary-row and Hermitian caches cleared,
+        the canvas check and the bf16 mirror redone. With
+        -hpddm_reuse_preconditioner the next ``build`` keeps the old
+        factorization and coarse operator."""
+        self.mats = list(mats)
+        self.A = pack_local_matrices(self._permuted(mats), n_max=self.n_max,
+                                     fmt=fmt, device=self.device)
+        self._herm_all = None
+        self._bc_cache = None
+        self._try_canvas_annotate()
+        self._apply_gmv_dtype()
+
+    def statistics(self) -> str:
+        """Global decomposition statistics (Subdomain::statistics,
+        HPDDM_subdomain.hpp:405-454), the JAX package's text
+        (``hpddm_tpu/precond/schwarz.py:1403-1424``)."""
+        dec = self.dec
+        n_loc = dec.n_loc.cpu().numpy()
+        d = dec.d.cpu().numpy()
+        nnz = np.array([m.nnz for m in self.mats])
+        nbrs = dec.if_mask.cpu().numpy().sum(axis=1)
+        owned = (d > 1e-12).sum(axis=1)
+        return "\n".join([
+            f" --- {dec.S} subdomains, global unknowns "
+            f"(unique) = {dec.n_global}",
+            f"     local dofs: min {n_loc.min()} / avg "
+            f"{n_loc.mean():.1f} / max {n_loc.max()}",
+            f"     local nnz:  min {nnz.min()} / avg {nnz.mean():.1f} "
+            f"/ max {nnz.max()}",
+            f"     interface dofs per subdomain: min {nbrs.min()} / max "
+            f"{nbrs.max()}",
+            f"     owned (POU > 0) dofs: min {owned.min()} / max "
+            f"{owned.max()}"])
+
+    def _caller_pou(self) -> np.ndarray:
+        """The POU (S, n_max) in the caller's numbering, on the host."""
+        return self.dec.unpermute(self.dec.d).cpu().numpy()
+
+    def exchange_matrices(self) -> None:
+        """Algebraic matrix-overlap exchange, the matrix variant of
+        ``Schwarz::exchange()`` (HPDDM_schwarz.hpp:190-275; the JAX
+        package's ``exchange_matrices``, ``hpddm_tpu/precond/schwarz.py:
+        703-768``). For every neighbour pair, the sharer whose POU is
+        nonzero on a shared row sends that row's entries on the shared
+        columns; the receiver overwrites the values at the positions its
+        pattern already stores (explicit zeros included) and keeps its
+        pattern. Senders go in ascending subdomain id, so the result is
+        deterministic. Host setup; ends in ``update_matrices``."""
+        d = self._caller_pou()
+        csrs = [m.scipy(expand=True).tocsr() for m in self.mats]
+        out = [c.copy() for c in csrs]
+        out_keys = []                  # canonical row * n + col per entry
+        for c in out:
+            c.sort_indices()
+            n = c.shape[0]
+            rows = np.repeat(np.arange(n, dtype=np.int64), np.diff(c.indptr))
+            out_keys.append(rows * n + c.indices.astype(np.int64))
+        for s in range(self.dec.S):    # ascending sender id
+            A_s = csrs[s]
+            for q, idx_s in zip(self.neighbors[s], self.mappings[s]):
+                pos = self.neighbors[q].index(s)
+                idx_q = self.mappings[q][pos]
+                sendable = d[s][idx_s] > HPDDM_EPS
+                if not sendable.any():
+                    continue
+                m = len(idx_s)
+                sub_s = A_s[idx_s][:, idx_s].tocoo()
+                keep = sendable[sub_s.row]             # POU-owned rows only
+                sr, sc, sv = sub_s.row[keep], sub_s.col[keep], \
+                    sub_s.data[keep]
+                blk_q = csrs[q][idx_q][:, idx_q].tocoo()
+                keys_q = np.unique(blk_q.row.astype(np.int64) * m
+                                   + blk_q.col)
+                hit = np.isin(sr.astype(np.int64) * m + sc, keys_q)
+                if not hit.any():
+                    continue
+                tgt = out[q]
+                key = idx_q[sr[hit]] * tgt.shape[0] + idx_q[sc[hit]]
+                tgt.data[np.searchsorted(out_keys[q], key)] = sv[hit]
+        self.update_matrices([MatrixCSR(m) for m in out])
+
+    def restriction(self) -> bool:
+        """Boolean rounding of the partition of unity
+        (``Schwarz::restriction``, HPDDM_schwarz.hpp:277-333): each dof
+        whose POU is fractional, or whose copies do not sum to 1, goes to
+        the sharer with the largest value (ties to the higher subdomain
+        id), whose copy becomes 1, the others 0 (``restrict_pou``). The
+        decomposition is rebuilt with the rounded POU ("given" scaling, the
+        same layout) and its exchange plans re-attached, and the next
+        ``build`` starts afresh. Returns whether any value changed."""
+        d = self._caller_pou()
+        d_list = [d[s][: self.mats[s].n].copy() for s in range(self.dec.S)]
+        changed = restrict_pou(self.neighbors, self.mappings, d_list)
+        if changed:
+            grid = self.dec.grid
+            self.dec = Decomposition.from_subdomains(
+                self.neighbors, self.mappings, [m.n for m in self.mats],
+                d=d_list, scaling="given", renumber=self.dec.renumbered,
+                dtype=d.dtype, device=self.device)
+            if grid is not None:
+                self.dec = dataclasses.replace(self.dec, grid=grid)
+            self._try_pexchange_plan()
+            self._state = None
+        return changed
 
     # -- coarse operator ---------------------------------------------------
     def _coarse_cfg(self) -> dict:
@@ -1128,12 +1359,13 @@ class Schwarz:
         Then the level-2 options (``level_2_krylov_method`` or
         ``level_2_tol``) choose a nested solve, ``iterative`` on the dense E
         or ``bsr`` on its blocks; without them E is inverted for a direct
-        solve."""
+        solve. ``-hpddm_level_2_dump_matrix`` writes the dense-assembled E
+        (after its -hpddm_coarse_dtype rounding) in the reference's text
+        format, as the JAX package (``hpddm_tpu/precond/schwarz.py:
+        1638-1642``); the block-sparse assembly writes nothing there
+        either."""
         opt = self.opt
         lvl = opt.level(2)
-        if lvl.val("dump_matrix"):
-            raise _not_ported("-hpddm_level_2_dump_matrix",
-                              "ROADMAP queue A, slice 5")
         dec = self.dec
         S = dec.S
         if self._deflation_vectors is None:
@@ -1185,6 +1417,11 @@ class Schwarz:
                 # it is inverted in f64 and rounded once, and the Krylov
                 # dispatch switches GMRES to its flexible variant
                 E = E.to(low)
+            dump = lvl.val("dump_matrix")
+            if dump:
+                E_np = E.cpu().numpy() if E.dtype != torch.bfloat16 else \
+                    E.cpu().float().numpy()
+                MatrixCSR(sp.csr_matrix(E_np)).dump(str(dump))
             if nested:
                 t0 = time.perf_counter()
                 co = self._dense_nested(E, common)
@@ -1377,7 +1614,8 @@ class Schwarz:
             V = W.to(Z.dtype)                                # A^H = A
         else:
             A_H = pack_local_matrices(
-                [MatrixCSR(m.scipy().conj().T.tocsr()) for m in self.mats],
+                self._permuted([MatrixCSR(m.scipy().conj().T.tocsr())
+                                for m in self.mats]),
                 n_max=self.n_max, fmt="auto", device=self.device)
             V = spmm(A_H, DZ.to(Av.dtype)).to(Z.dtype)
         gidx = dec.if_idx[:, :, None].expand(-1, -1, nu_max)

@@ -51,8 +51,23 @@ def make_operator(A) -> LinearOperator:
 def solve(A, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
           opt: Optional[Options] = None, prefix: str = ""):
     """Dispatch on ``-hpddm_krylov_method``. b and x0: (S, n, mu) or (S, n)
-    in the caller's numbering (the general path keeps it). Returns a
-    ``KrylovResult``, or a ``GCRODRResult`` for gcrodr/bgcrodr."""
+    in the caller's numbering; an interface-first decomposition permutes
+    them on entry and unpermutes x on exit, two gathers per solve
+    (``hpddm_tpu/solvers/krylov.py:55-69``). Returns a ``KrylovResult``,
+    or a ``GCRODRResult`` for gcrodr/bgcrodr."""
+    dec = A.dec if isinstance(A, _schwarz.SchwarzState) else None
+    if dec is None or not dec.renumbered:
+        return _solve_core(A, b, x0, opt, prefix)
+    b = dec.permute(b[:, :, None] if b.dim() == 2 else b)
+    if x0 is not None:
+        x0 = dec.permute(x0[:, :, None] if x0.dim() == 2 else x0)
+    res = _solve_core(A, b, x0, opt, prefix)
+    return res._replace(x=dec.unpermute(res.x))
+
+
+def _solve_core(A, b: torch.Tensor, x0: Optional[torch.Tensor],
+                opt: Optional[Options], prefix: str = ""):
+    """``solve`` in the operator's internal numbering."""
     if opt is None:
         opt = Options()
     opt.warn_inert()
@@ -86,8 +101,8 @@ def solve(A, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
         inner.remove("enlarge_krylov_subspace")
         if method in ("gmres", "cg"):
             inner["krylov_method"] = {"gmres": "bgmres", "cg": "bcg"}[method]
-        res = solve(A, preprocess(A.dec, b, int(enlarge)), None, inner,
-                    prefix)
+        res = _solve_core(A, preprocess(A.dec, b, int(enlarge)), None,
+                          inner, prefix)
         return res._replace(x=postprocess(res.x),
                             it_per_rhs=res.it_per_rhs[:1],
                             rel_res=res.rel_res[:1],

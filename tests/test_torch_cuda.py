@@ -844,3 +844,54 @@ def test_helmholtz_solve_never_runs_plain_on_cuda(helm_ops, monkeypatch):
     assert kmod.launches > before and calls[0] == 0
     assert res.iterations == solve(cpu, f, opt=opt).iterations
     assert res.x.dtype == torch.complex128
+
+
+@pytest.fixture(scope="module")
+def renumbered():
+    """A small unstructured problem in the interface-first layout, set up
+    on the card and on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    gen = unstructured.generate(4, 30, 30, overlap=2, with_neumann=False)
+    return {dev: Schwarz(gen.mats, gen.neighbors, gen.mappings, d=gen.d,
+                         renumber=True, device=dev) for dev in ("cuda", "cpu")}
+
+
+@pytest.mark.parametrize("mu", [1, 4])
+def test_renumbered_gmv_runs_b4_bitwise_plain(renumbered, mu):
+    """The gmv of the interface-first layout runs B4 (no B5 plan there)
+    and equals the plain ELL form on the same renumbered batch, bitwise;
+    its exchange equals the CPU's, bitwise."""
+    card, cpu = renumbered["cuda"], renumbered["cpu"]
+    state = card.operator_state()
+    assert state.dec.renumbered and state.dec.pexch is None
+    x = torch.as_tensor(np.random.default_rng(mu).normal(
+        size=(state.dec.S, card.n_max, mu)), device="cuda")
+    before = (ek.launches, pk.launches)
+    y = gmv(state, x)
+    assert (ek.launches, pk.launches) == (before[0] + 1, before[1])
+    assert torch.equal(y, scaled_exchange(state.dec, spmm_ell(state.A, x)))
+    assert torch.equal(exchange(state.dec, x).cpu(),
+                       exchange(cpu.dec, x.cpu()))
+
+
+def test_bf16_gmv_on_card_matches_cpu(cuda):
+    """-hpddm_gmv_dtype bfloat16 in f32 on a grid: the card's gmv (the
+    plain DIA form on the mirror, no B1 launch) agrees with the CPU's."""
+    from hpddm_tpu_torch.options import Options
+
+    gen = diffusion2d.generate_uniform(4, 64, 64, overlap=1, dtype=np.float32)
+    st = {}
+    for dev in ("cuda", "cpu"):
+        sch = Schwarz(gen.mats, gen.neighbors, gen.mappings, d=gen.d,
+                      options=Options(gmv_dtype="bfloat16"), device=dev)
+        sch.set_grid_geometry(gen.boxes, 64, 64)
+        st[dev] = sch.operator_state()
+    x = np.random.default_rng(2).normal(
+        size=(4, st["cpu"].dec.n_max, 1)).astype(np.float32)
+    before = kmod.launches
+    y = gmv(st["cuda"], torch.from_numpy(x).to("cuda")).cpu().numpy()
+    assert kmod.launches == before
+    want = gmv(st["cpu"], torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(y, want, rtol=1e-6,
+                               atol=1e-6 * np.abs(want).max())

@@ -241,20 +241,18 @@ def test_unported_branches_raise(port_setup, jax_setup):
 
 
 @pytest.mark.parametrize("options,call,match", [
-    ({"reuse_preconditioner": 1}, lambda sch, gen: sch.build(),
-     "reuse_preconditioner"),
-    ({"geneo_estimate_nu": 1, "geneo_threshold": 0.3},
-     lambda sch, gen: sch.solve_gevp(gen.neumann), "geneo_estimate_nu"),
-    ({}, lambda sch, gen: sz.Schwarz(
-        gen.mats, gen.neighbors, gen.mappings, d=gen.d,
-        options=Options(gmv_dtype="bfloat16"), device="cpu"), "gmv_dtype"),
+    ({"local_solver": "fft"}, lambda sch, gen: sch.build(), "fft.*5d"),
+    ({"local_solver": "dst_cheby"}, lambda sch, gen: sch.build(),
+     "dst_cheby.*5d"),
+    ({"local_solver": "cheby"}, lambda sch, gen: sch.build(), "cheby.*5d"),
 ])
 def test_left_out_options_raise(port_setup, options, call, match):
-    """Options whose branches are not ported raise instead of running
-    another path: reuse of a factorization, GenEO's eigenvalue-count
-    estimate, and the operator product in another dtype
-    (``-hpddm_gmv_dtype``). Factors in another dtype than the operator's
-    are ported (tests/test_torch_krylov.py)."""
+    """Options whose branches are not ported raise, naming their slice,
+    instead of running another path: the FFT and Chebyshev local solvers
+    (slice 5d). Slice 5a's options (reuse of a factorization, GenEO's
+    eigenvalue-count estimate, the bf16 operator mirror) run and are held
+    to the JAX package in tests/test_torch_features.py; factors in
+    another dtype than the operator's in tests/test_torch_krylov.py."""
     gen, _ = port_setup
     sch = sz.Schwarz(gen.mats, gen.neighbors, gen.mappings, d=gen.d,
                      options=Options(**options), device="cpu")

@@ -135,6 +135,9 @@ def test_decomposition_on_device_argument():
                                         gen.n_loc, d=gen.d,
                                         device=torch.device("cpu"))
     assert dec.device.type == "cpu" and dec.d.dtype == torch.float64
-    with pytest.raises(NotImplementedError, match="renumber"):
-        Decomposition.from_subdomains(gen.neighbors, gen.mappings, gen.n_loc,
-                                      d=gen.d, renumber=True, device="cpu")
+    assert not dec.renumbered and dec.perm is None
+    ren = Decomposition.from_subdomains(gen.neighbors, gen.mappings,
+                                        gen.n_loc, d=gen.d, renumber=True,
+                                        device="cpu")
+    assert ren.renumbered and ren.perm.device.type == "cpu"
+    assert ren.perm.dtype == ren.iperm.dtype == torch.int64

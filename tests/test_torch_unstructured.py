@@ -345,9 +345,9 @@ def test_entry_points_default_to_cuda(gens, monkeypatch, entry):
 
 
 @pytest.mark.parametrize("what,call,match", [
-    ("renumber", lambda g: sz.Schwarz(g.mats, g.neighbors, g.mappings,
-                                      d=g.d, renumber=True, device="cpu"),
-     "renumber"),
+    ("dst_cheby", lambda g: sz.Schwarz(
+        g.mats, g.neighbors, g.mappings, d=g.d, device="cpu",
+        options=Options(local_solver="dst_cheby")).build(), "dst_cheby.*5d"),
     ("fft", lambda g: sz.Schwarz(
         g.mats, g.neighbors, g.mappings, d=g.d, device="cpu",
         options=Options(local_solver="fft")).build(), "fft"),
