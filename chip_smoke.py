@@ -154,14 +154,34 @@ Phases (any failure exits non-zero before the last line is printed):
    sweep (3 wavenumbers, GMRES(200) and GCRODR(200,10)): GCRODR at most
    GMRES + 10; (d) four random c128 right-hand sides on (b)'s state
    (B2 c128 on the path), every residual <= 1e-5; B1 and B2 c128 and B1
-   f64 at 31 diagonals timed beside their bounds and torch.sparse.mm.
+   f64 at 31 diagonals timed beside their bounds and torch.sparse.mm;
+22. slice 5a: the renumbered production configuration, the reuse
+   sequence, exchange_matrices + restriction, the bf16 mirror, the GenEO
+   estimate and the dumps (``phase_slice_5a``);
+23. slices 5d + 5e(ii) (``phase_slice_5d``): (a) one-level FFT-RAS at the
+   oracle, the JAX package's count ``FFT_ORACLE_ITS``, and the fft and
+   matmul DST modes within 1e-10; (b) the heterogeneous cell of
+   examples/hetero.py (generate_uniform(16, 1024, 1024), contrast 1e4,
+   Jacobi-scaled, dst_cheby k=32, Lanczos GenEO nu=16, bsr, f64, tol
+   1e-8) within 1 of the JAX package's count on its Chebyshev bounds
+   (``HETERO_JAX_BOUNDS``), and on the port's own start vectors inside
+   its converged counts over start vectors (``HETERO_JAX_ITS``), banded
+   on its GenEO vectors (not above it), B1 and B2 at the path's shapes,
+   every local solver timed at mu=1 and 4, and where a
+   Chebyshev apply spends its time; (c) fft two-level on the constant
+   coefficient beside banded; (d) the dense Schwarz variant at
+   generate(16, 256, 256) with the bmm gmv and the sparse gmv as its user
+   GMV (equal counts), EVP + deflated on the card and the host CPU; (e)
+   MAC Stokes at N=``STOKES_N`` with GenEO and banded (RCM) inner solves
+   (block residuals, B4/B5 at its operator).
 
 Phase 5 drives the DIA path, phase 8 the unstructured path, phase 11 the
 multi-RHS path, phase 12 the banded grid path, phase 13 the banded
 unstructured path, phase 14 the grid gmv (and its multi-RHS branch),
 phase 15 the flagship, phase 16 the ladder, phase 17 the elasticity
 flagship, phase 18 the 3D diffusion path, phase 19 the 3D elasticity
-path and phase 21 the Helmholtz path (native, four sources, real pair),
+path, phase 21 the Helmholtz path (native, four sources, real pair)
+and phase 23 the hetero dst_cheby, dense-variant and Stokes paths,
 each with its kernels' launch counts set to 0 just before it and read just after; comparisons
 and timings come after the counts are read. Each phase's wall seconds
 are printed. The script prints one JSON line with the kernels' results
@@ -251,6 +271,52 @@ MULTI_SLACK = ("bfbcg", "gcrodr", "bgcrodr")
 # held to 1e-5
 MULTI_RES = {"left gmres": 7.901e-05, "richardson": 1.223e-05}
 
+# one-level FFT-RAS iteration count of the JAX package on the CPU in f64
+# at the oracle (100x100, S=4, local_solver fft, tol 1e-6; matmul DST
+# mode); tests/test_torch_fft_cheby.py checks it against hpddm_tpu
+FFT_ORACLE_ITS = 38
+
+# GMRES iteration counts of the JAX package on the CPU in f64 at the
+# heterogeneous cell of examples/hetero.py (tools/bench_hetero.py:
+# generate_uniform(16, 1024, 1024), contrast 1e4, Jacobi-scaled, dst_cheby
+# k=32, Lanczos GenEO nu=16, bsr, deflated, tol 1e-8), by the seed of the
+# Chebyshev bounds' start vector (7 is its default; with 6 the solve stops
+# at max_it 100 at 2.1e-8); tests/test_torch_fft_cheby.py (-m slow)
+# recomputes them. The lower Chebyshev bound follows rounding (ROADMAP
+# C17) and the port draws its start vector otherwise, so phase 23 holds
+# the port's counts inside the converged ones widened by 5 below, and its
+# residual to 1e-8
+HETERO_JAX_ITS = {1: 85, 2: 69, 3: 69, 4: 85, 5: 96, 6: 100, 7: 74}
+# the JAX package's Chebyshev bounds per subdomain at that cell (its
+# default start vector, seed 7), with which it takes HETERO_JAX_ITS[7]
+# iterations, and so does the port on the CPU; phase 23 carries them into
+# the port's solver and holds the card's count within 1 of it;
+# tests/test_torch_fft_cheby.py (-m slow) recomputes them and holds the
+# port's CPU count
+HETERO_JAX_BOUNDS = {
+    "lo": [1.668930053710938e-05, 1.7336702873488803e-05,
+           1.583271418767823e-05, 1.6689300537109375e-05,
+           8.452254117733817e-06, 1.0376194864487268e-05,
+           1.603153912033889e-05, 7.749278757240254e-06,
+           8.35250372327702e-06, 2.709101232135009e-06,
+           8.656650855093065e-06, 1.4046548736747807e-07,
+           1.6689300537109375e-05, 1.7244276684006482e-05,
+           1.50276027436268e-05, 1.668930053710938e-05],
+    "hi": [2.5033950805664066e-05, 6.454646398538962e-05,
+           3.759741286645841e-05, 2.503395080566408e-05,
+           0.0014336197603959581, 0.0014338462012592479,
+           0.001433528122671007, 0.00143361976039596,
+           0.0014748876173585172, 0.0014751258454757158,
+           0.0014747910632732534, 0.0014748876173585198,
+           2.5033950805664062e-05, 6.453909335635124e-05,
+           3.7697717827688446e-05, 2.503395080566407e-05]}
+# the Stokes cell's grid: the JAX package's k-way partition of the MAC
+# velocity block puts a whole velocity component (a separate component of
+# A's graph) into one subdomain, n_max 65,373 at N=256, whose dense
+# inverses would take 547 GB: phase 23 (e) factors through RCM (banded
+# local solver, bandwidth 255 there)
+STOKES_N = 256
+
 # the card's peaks for a kernel's bound (NVIDIA H100 SXM data sheet):
 # HBM3 bandwidth, and f64 / f32 arithmetic outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -334,10 +400,8 @@ def build_problem(S, N, nu, dtype, device, timings=None, mu=0,
     t_dec = time.perf_counter() - t
     sch.solve_gevp(gen.neumann)
     state = sch.build()
-    f = np.zeros((S, sch.n_max, max(mu, 1)), dtype=dtype)
-    for s in range(S):
-        f[s, : gen.n_loc[s]] = gen.f[s]
-    f = torch.as_tensor(f, device=device)
+    f = torch.as_tensor(diffusion2d.padded_rhs(gen.f, sch.n_max, dtype),
+                        device=device)
     if mu:
         f = sch.exchange_rhs(f)
     if timings is not None:
@@ -1981,12 +2045,12 @@ def phase_ladder():
     return recs
 
 
-def dia_model_record(name, A, launches):
-    """B1 on a model's flat DIA operator A (its own offsets): the kernel
-    against its plain version, bitwise, in f64 and f32 on a random x; the
-    f64 kernel, plain version and torch.sparse.mm timed with the L2 flushed
-    beside the bound (values, x and y once; a product and a sum per stored
-    nonzero)."""
+def dia_model_record(name, A, launches, mu=1):
+    """B1 (mu=1), or B2 on an (S, n, mu) panel, on a model's flat DIA
+    operator A (its own offsets): the kernel against its plain version,
+    bitwise, in f64 and f32 on a random x; the f64 kernel, plain version
+    and torch.sparse.mm timed with the L2 flushed beside the bound (values,
+    x and y once; a product and a sum per stored nonzero and column)."""
     import torch
     from hpddm_tpu_torch.examples.library_ops import dia_csr
     from hpddm_tpu_torch.ops import dia_spmv as kmod
@@ -1994,30 +2058,32 @@ def dia_model_record(name, A, launches):
 
     offs = A.offsets
     S, nd, n = A.values.shape
-    x64 = torch.as_tensor(np.random.default_rng(nd).normal(size=(S, n)),
-                          device="cuda")
+    fn = kmod.dia_spmv if mu == 1 else kmod.dia_spmm
+    x64 = torch.as_tensor(np.random.default_rng(nd).normal(
+        size=(S, n) if mu == 1 else (S, n, mu)), device="cuda")
     err = 0.0
     for dt in (torch.float64, torch.float32):
         vals, x = A.values.to(dt).contiguous(), x64.to(dt)
-        y, ref = kmod.dia_spmv(vals, x, offs), kmod.dia_spmv_reference(
-            vals, x, offs)
-        check(torch.equal(y, ref), f"{name}: dia_spmv differs from plain "
-              f"({dtype_name(dt)})")
+        y, ref = fn(vals, x, offs), kmod.dia_spmv_reference(vals, x, offs)
+        check(torch.equal(y, ref), f"{name}: {fn.__name__} differs from "
+              f"plain ({dtype_name(dt)})")
         err = max(err, float((y - ref).abs().max()))
+    del y, ref
     vals = A.values
-    k_ms = cold_events_ms(lambda: kmod.dia_spmv(vals, x64, offs))
+    k_ms = cold_events_ms(lambda: fn(vals, x64, offs))
     p_ms = cold_events_ms(lambda: kmod.dia_spmv_reference(vals, x64, offs))
     b_ms, b_by = bound((vals.numel() + 2 * x64.numel()) * 8,
-                       2 * int(torch.count_nonzero(vals)), vals.dtype)
-    lib = library_ms(dia_csr(vals, offs), x64.reshape(-1, 1))
-    print(f"  {name} (S={S}, nd={nd}, n={n}, f64): kernel {k_ms * 1e3:.2f} "
-          f"us, plain {p_ms * 1e3:.2f} us, torch.sparse.mm "
+                       2 * int(torch.count_nonzero(vals)) * mu, vals.dtype)
+    lib = library_ms(dia_csr(vals, offs), x64.reshape(-1, mu))
+    print(f"  {name} (S={S}, nd={nd}, n={n}, mu={mu}, f64): kernel "
+          f"{k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us, torch.sparse.mm "
           + ("not timed" if lib is None else f"{lib * 1e3:.2f} us")
           + f" (L2 flushed); bound {b_ms * 1e3:.2f} us ({b_by}) = "
           f"{100 * b_ms / k_ms:.1f}% of the kernel's time; bitwise equal to "
           f"plain in f64 and f32; {launches} launches on the path")
     return kernel_record(name, "hpddm_tpu_torch/csrc/dia_spmv.cu",
-                         "hpddm_tpu/ops/pallas_spmv.py:98", launches, err,
+                         "hpddm_tpu/ops/pallas_spmv.py:98" if mu == 1 else
+                         "hpddm_tpu/ops/pallas_spmv.py:167", launches, err,
                          k_ms, p_ms, b_ms, b_by, lib)
 
 
@@ -2208,14 +2274,13 @@ def phase_elasticity3d():
     the path."""
     import torch
     from hpddm_tpu_torch.examples.elasticity import E3_ITS
-    from hpddm_tpu_torch.examples.library_ops import ell_csr, exchange_csr
     from hpddm_tpu_torch.models import elasticity3d
     from hpddm_tpu_torch.ops import ell_spmv as ek
     from hpddm_tpu_torch.options import Options
     from hpddm_tpu_torch.parallel import pexchange as pk
     from hpddm_tpu_torch.precond.schwarz import Schwarz
     from hpddm_tpu_torch.solvers.krylov import solve
-    from hpddm_tpu_torch.timing import cold_events_ms, timed
+    from hpddm_tpu_torch.timing import timed
 
     S, N = 8, 24
     print(f"phase 19: 3D elasticity (elasticity3d.generate({S}, {N}, {N}, "
@@ -2291,12 +2356,25 @@ def phase_elasticity3d():
     check(min(launches) > 0, f"ell_spmv / pexchange launches {launches}")
     check(plain_calls == 0, f"{plain_calls} plain-version calls on the card")
 
-    # B4 and B5 at this operator, against their plain versions on a normal
-    # random x (with a non-finite entry, mu 1 and 4 / 1 and 3), f64 and
-    # f32 bitwise; f64 timed on a random x
-    rng = np.random.default_rng(19)
-    err4 = check_ell("3D elasticity", A, (1, 4), rng)
-    err5 = check_pexchange("3D elasticity", dec, rng)
+    return ell_path_records("3D elasticity", A, dec, launches,
+                            np.random.default_rng(19))
+
+
+def ell_path_records(label, A, dec, launches, rng):
+    """B4 and B5 at a path's ELL operator A and its exchange plan: against
+    their plain versions on a normal random x (with a non-finite entry, mu
+    1 and 4 / 1 and 3), f64 and f32 bitwise; f64 timed on a random x beside
+    the bound and torch.sparse.mm. ``launches``: (B4, B5) on the path.
+    Returns their two kernel records."""
+    import torch
+    from hpddm_tpu_torch.examples.library_ops import ell_csr, exchange_csr
+    from hpddm_tpu_torch.ops import ell_spmv as ek
+    from hpddm_tpu_torch.parallel import pexchange as pk
+    from hpddm_tpu_torch.timing import cold_events_ms
+
+    S = dec.S
+    err4 = check_ell(label, A, (1, 4), rng)
+    err5 = check_pexchange(label, dec, rng)
     plan = dec.pexch
     x = torch.as_tensor(rng.normal(size=(S, dec.n_max, 1)), device="cuda")
     nnz = int(torch.count_nonzero(A.values))
@@ -2329,12 +2407,12 @@ def phase_elasticity3d():
           f"{p5 * 1e3:.2f} us, torch.sparse.mm {txt(l5)} (L2 flushed); "
           f"bound {b5_ms * 1e3:.2f} us ({b5_by}) = {100 * b5_ms / k5:.1f}% "
           "of the kernel's time; bitwise equal to plain in f64 and f32")
-    return [kernel_record("ell_spmv 3D elasticity path (w="
+    return [kernel_record(f"ell_spmv {label} path (w="
                           f"{A.values.shape[1]})",
                           "hpddm_tpu_torch/csrc/ell_spmv.cu",
                           "hpddm_tpu/ops/pallas_ell.py:133", launches[0],
                           err4, k4, p4, b4_ms, b4_by, l4),
-            kernel_record("pexchange 3D elasticity path",
+            kernel_record(f"pexchange {label} path",
                           "hpddm_tpu_torch/csrc/pexchange.cu",
                           "hpddm_tpu/parallel/pexchange.py:149",
                           launches[1], err5, k5, p5, b5_ms, b5_by, l5)]
@@ -3062,6 +3140,444 @@ def phase_22e():
     print("    statistics():\n" + sch.statistics())
 
 
+def phase_slice_5d():
+    """Phase 23: slice 5d + 5e(ii), the DST and Chebyshev local solvers,
+    the dense Schwarz variant and the Stokes saddle-point solver:
+    (a) the FFT-RAS oracle; (b) the heterogeneous cell of
+    examples/hetero.py (dst_cheby), banded on its GenEO vectors and the
+    local solvers' times; (c) fft two-level on the constant coefficient;
+    (d) the dense variant; (e) MAC Stokes. Returns the kernel records of
+    the new paths."""
+    t = time.perf_counter()
+    print("phase 23: slice 5d + 5e(ii) (DST and Chebyshev local solvers, "
+          "dense Schwarz, Stokes saddle point)")
+    phase_23a()
+    recs = phase_23b()
+    phase_23c()
+    recs.append(phase_23d())
+    recs += phase_23e()
+    print(f"  phase 23 in all {time.perf_counter() - t:.1f} s")
+    return recs
+
+
+def phase_23a():
+    """(a) One-level FFT-RAS at the oracle (100x100, S=4, matmul DST mode):
+    the JAX package's CPU count ``FFT_ORACLE_ITS`` (<= 45), recomputed
+    residual <= 1e-2; the fft and matmul modes agree to 1e-10 on the card
+    on mixed boxes (overlap 2)."""
+    import torch
+    from hpddm_tpu_torch.models import diffusion2d
+    from hpddm_tpu_torch.ops import fft_solve as fs
+    from hpddm_tpu_torch.options import Options
+    from hpddm_tpu_torch.precond.schwarz import Schwarz
+
+    S, N = 4, 100
+    gen = diffusion2d.generate(S, N, N, overlap=1)
+    opt = Options(local_solver="fft")
+    sch = Schwarz(gen.mats, gen.neighbors, gen.mappings, d=gen.d,
+                  options=opt, device="cuda")
+    sch.set_grid_geometry(gen.boxes, N, N)
+    state = sch.build()
+    res, rel = solve_checked(state, torch.as_tensor(diffusion2d.padded_rhs(
+        gen.f, sch.n_max), device="cuda"), opt, 1e-6)
+    gen2 = diffusion2d.generate(S, N, N, overlap=2)
+    n_max = max(gen2.n_loc)
+    b = torch.as_tensor(np.random.default_rng(23).normal(
+        size=(S, n_max, 3)), device="cuda")
+    mm, ff = (fs.build_fft_solver(gen2.boxes, N, N, n_max,
+                                  dtype=torch.float64, mode=m,
+                                  device="cuda") for m in ("matmul", "fft"))
+    err = float((mm.solve(b) - ff.solve(b)).abs().max())
+    print(f"  (a) FFT-RAS oracle (100x100, S=4, one level, "
+          f"{type(state.solver).__name__}): {res.iterations} iterations "
+          f"(the JAX package's CPU count {FFT_ORACLE_ITS}), recomputed rel. "
+          f"residual {rel:.3e}; fft mode vs matmul mode on mixed boxes "
+          f"(mu=3): max abs difference {err:.3e}")
+    check(isinstance(state.solver, fs.DSTMatmulSolver)
+          and res.iterations == FFT_ORACLE_ITS and rel <= 1e-2,
+          f"(a) {res.iterations} iterations, residual {rel:.3e}")
+    check(err <= 1e-10, f"(a) fft and matmul modes differ by {err:.3e}")
+
+
+def local_solver_of(sch, kind):
+    """The one-level local solver ``kind`` of a Schwarz setup (its coarse
+    correction left out for the build, then restored)."""
+    corr = sch.opt.val("schwarz_coarse_correction")
+    sch.opt["local_solver"] = kind
+    sch.opt.remove("schwarz_coarse_correction")
+    try:
+        return sch.build().solver
+    finally:
+        sch.opt["schwarz_coarse_correction"] = corr
+
+
+def phase_23b():
+    """(b) The heterogeneous cell (examples/hetero.py's defaults:
+    generate_uniform(16, 1024, 1024), contrast 1e4, Jacobi-scaled,
+    dst_cheby k=32, Lanczos GenEO nu=16 with the DST inner solve, bsr,
+    deflated, f64, tol 1e-8): its path (GenEO, build, one solve) with the
+    launch counts, then the solve best of 3 after a warm-up; banded on the
+    same GenEO vectors; one local solve at mu=1 and 4 of dst_cheby, cheby,
+    fft and banded; where a dst_cheby apply spends its time. Gates:
+    recomputed residuals <= 1e-8; on the JAX package's bounds
+    (``HETERO_JAX_BOUNDS``) within 1 of its count; on the port's start vectors
+    of seeds 7, 1, 2, 3 inside the JAX package's converged counts over
+    start vectors (``HETERO_JAX_ITS``) widened by 5 below; banded not above
+    dst_cheby; B1 launches, no plain-version call. B1's and B2's records
+    at the path's shapes (B2 at the bsr panel's nu columns)."""
+    import dataclasses
+
+    import torch
+    from hpddm_tpu_torch.examples import hetero
+    from hpddm_tpu_torch.ops import dia_spmv as kmod
+    from hpddm_tpu_torch.ops.cheby_solve import build_cheby_solver
+    from hpddm_tpu_torch.ops.spmv import spmm
+    from hpddm_tpu_torch.options import Options
+    from hpddm_tpu_torch.precond.schwarz import compute_residual
+    from hpddm_tpu_torch.solvers.krylov import solve
+    from hpddm_tpu_torch.timing import events_ms
+
+    S, N = 16, 1024
+    opt = Options(tol=1e-8, **hetero.DEFAULTS)
+    plain = count_plain_calls()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kmod.launches = kmod.spmm_launches = 0
+    plain[0] = 0
+    sch, f, phases = hetero.setup(S, N, opt, np.float64, "cuda")
+    geneo_launches = (kmod.launches, kmod.spmm_launches)
+    state, phases["build"] = hetero.build_timed(sch)
+    build_b2 = kmod.spmm_launches - geneo_launches[1]
+    launches0 = kmod.launches
+    res = solve(state, f, opt=sch.opt)
+    solve_b1 = kmod.launches - launches0
+    b1, b2, plain_calls = kmod.launches, kmod.spmm_launches, plain[0]
+    r = hetero.solve_report(sch, state, f, reps=3)
+    peak = torch.cuda.max_memory_allocated()
+    sol = state.solver
+    print(f"  (b) heterogeneous cell: generate_uniform({S}, {N}, {N}), "
+          f"contrast 1e4, Jacobi-scaled, n_max {sch.n_max}, dst_cheby "
+          f"k={sol.k}, Lanczos GenEO nu=16, bsr ({type(state.coarse).__name__}"
+          f" mode {state.coarse.mode}), deflated, f64, tol 1e-8")
+    print("    setup " + ", ".join(f"{k} {v:.3f} s" for k, v in
+                                   phases.items()) + "; of which " +
+          ", ".join(f"{k} {v:.3f} s" for k, v in sch.timings.items()))
+    print(f"    dst_cheby: {r['iterations']} iterations (the JAX package's "
+          f"CPU counts by start vector {HETERO_JAX_ITS}), solve {r['solve_s']:.4f} s (best "
+          f"of 3 after a warm-up), {r['ms_per_it']:.2f} ms per iteration, "
+          f"recomputed rel. residual {r['relres']:.3e}; peak device memory "
+          f"{peak / 2**30:.2f} GiB")
+    print(f"    launches on the path: dia_spmv (B1) {geneo_launches[0]} in "
+          f"GenEO, {solve_b1} in one solve ({solve_b1 / res.iterations:.1f} "
+          f"an iteration), {b1} in all; dia_spmm (B2) {geneo_launches[1]} "
+          f"in GenEO, {build_b2} in the build (the bsr coarse panel), {b2} "
+          f"in all; plain-version calls on the card {plain_calls}")
+    check(r["relres"] <= 1e-8 and r["converged"],
+          f"(b) dst_cheby residual {r['relres']:.3e}")
+    check(solve_b1 > 0 and plain_calls == 0,
+          f"(b) B1 launches {solve_b1} in a solve, plain calls "
+          f"{plain_calls}")
+
+    # on the JAX package's bounds (its default start vector) the port
+    # takes its count on the CPU (tests/test_torch_fft_cheby.py, -m slow)
+    # and within one on the card (rounding on a contrast-1e4 system); the
+    # port's own start vectors (its default 7 and
+    # seeds 1-3) move lo with rounding (ROADMAP C17), and each count stays
+    # inside the JAX package's converged counts over start vectors (a
+    # count at max_it is none) widened by 5 below
+    dt = sol.lo.dtype
+    jb = {k: torch.tensor(v, dtype=dt, device="cuda")
+          for k, v in HETERO_JAX_BOUNDS.items()}
+    st_j = dataclasses.replace(state, solver=dataclasses.replace(sol, **jb))
+    res_j = solve(st_j, f, opt=sch.opt)
+    nb, nr = compute_residual(st_j, res_j.x, f)
+    rel_j = float(nr[0] / nb[0])
+    dev = {k: float((getattr(sol, k) / jb[k] - 1).abs().max()) for k in jb}
+    max_it = int(sch.opt.val("max_it"))
+    conv = [v for v in HETERO_JAX_ITS.values() if v < max_it]
+    lo_its, hi_its = min(conv) - 5, max(conv)
+    seeds = {7: r["iterations"]}
+    for seed in (1, 2, 3):
+        other = build_cheby_solver(sol.A, state.dec.row_mask, inner=sol.inner,
+                                   k=sol.k, power_its=int(sch.opt.val(
+                                       "local_cheby_power_its")), seed=seed)
+        seeds[seed] = solve(dataclasses.replace(state, solver=other), f,
+                            opt=sch.opt).iterations
+    print(f"    dst_cheby on the JAX package's bounds (HETERO_JAX_BOUNDS): "
+          f"{res_j.iterations} iterations (its CPU count "
+          f"{HETERO_JAX_ITS[7]}), recomputed rel. residual {rel_j:.3e}; the "
+          f"port's own bounds against them: max relative difference lo "
+          f"{dev['lo']:.3e}, hi {dev['hi']:.3e}; on the port's start vectors "
+          f"of seeds 7 (its default), 1, 2, 3: {list(seeds.values())} "
+          f"iterations (gate {lo_its}-{hi_its})")
+    check(abs(res_j.iterations - HETERO_JAX_ITS[7]) <= 1 and rel_j <= 1e-8,
+          f"(b) dst_cheby on the JAX bounds: {res_j.iterations} iterations, "
+          f"residual {rel_j:.3e}")
+    check(all(lo_its <= v <= hi_its for v in seeds.values()),
+          f"(b) dst_cheby counts by start vector {seeds}, gate "
+          f"{lo_its}-{hi_its}")
+
+    # banded on the same GenEO vectors and coarse operator
+    t = time.perf_counter()
+    banded = local_solver_of(sch, "banded")
+    torch.cuda.synchronize()
+    t_b = time.perf_counter() - t
+    state_b = dataclasses.replace(state, solver=banded)
+    rb = hetero.solve_report(sch, state_b, f, reps=3)
+    print(f"    banded on the same vectors: {rb['iterations']} iterations, "
+          f"solve {rb['solve_s']:.4f} s ({rb['ms_per_it']:.2f} ms per "
+          f"iteration), recomputed rel. residual {rb['relres']:.3e}; factor "
+          f"{t_b:.2f} s, {factor_txt(banded)}; dst_cheby keeps no factor "
+          f"(its operator and DST tables {cheby_bytes(sol) / 1e6:.2f} MB). "
+          f"The rule dst_cheby <= banded + 5 (tests/test_cheby.py:51's) "
+          f"{'holds' if r['iterations'] <= rb['iterations'] + 5 else 'fails'}"
+          f" ({r['iterations']} vs {rb['iterations']})")
+    check(rb["relres"] <= 1e-8 and rb["iterations"] <= r["iterations"],
+          f"(b) banded {rb['iterations']} iterations, residual "
+          f"{rb['relres']:.3e}")
+
+    # one local solve per apply, warm-up 1, best of 3 (CUDA events)
+    cheby = local_solver_of(sch, "cheby")
+    fft = local_solver_of(sch, "fft")
+    rng = np.random.default_rng(231)
+    times = {}
+    for name, solver in (("dst_cheby", sol), ("cheby", cheby),
+                         ("fft", fft), ("banded", banded)):
+        for mu in (1, 4):
+            x = torch.as_tensor(rng.normal(size=(S, sch.n_max, mu)),
+                                device="cuda") * state.dec.d[:, :, None]
+            times[name, mu] = events_ms(lambda: solver.solve(x), reps=1,
+                                        blocks=3)
+    print("    one local solve (warm-up 1, best of 3, CUDA events): " +
+          "; ".join(f"{k} mu={mu} {v:.3f} ms" for (k, mu), v in
+                    times.items()))
+
+    # where a dst_cheby apply spends its time: k + 1 DST solves, k B1
+    # products and the recursion's element-wise work
+    x = torch.as_tensor(rng.normal(size=(S, sch.n_max, 1)), device="cuda")
+    t_dst = events_ms(lambda: sol.inner.solve(x), reps=5, blocks=3)
+    t_b1 = events_ms(lambda: spmm(sol.A, x), reps=5, blocks=3)
+    wall, busy = device_busy_ms(lambda: sol.solve(x))
+    k = sol.k
+    print(f"    a dst_cheby apply (k={k}, mu=1): wall {wall:.3f} ms, device "
+          f"busy " + ("not measured" if busy is None else
+                      f"{busy:.3f} ms ({100 * busy / wall:.1f}%)")
+          + f"; one DST solve {t_dst:.3f} ms x {k + 1} = "
+          f"{(k + 1) * t_dst:.3f} ms, one B1 product {t_b1 * 1e3:.2f} us x "
+          f"{k} = {k * t_b1:.3f} ms (back to back); an iteration "
+          f"{r['ms_per_it']:.2f} ms")
+    out = [dia_model_record("dia_spmv hetero dst_cheby path (1024^2/16)",
+                            state.A, solve_b1),
+           dia_model_record("dia_spmm hetero bsr coarse panel", state.A,
+                            build_b2, mu=state.coarse.nu_max)]
+    del state, state_b, sch, banded, cheby, fft, sol, f
+    return out
+
+
+def cheby_bytes(sol):
+    """Bytes a Chebyshev solver keeps: its operator's values, the scaling
+    or Jacobi diagonal, the bounds and the DST solver's tables."""
+    import torch
+
+    ts = [sol.A.values, sol.scale, sol.dinv, sol.lo, sol.hi]
+    for v in (vars(sol.inner) if sol.inner is not None else {}).values():
+        ts += list(v) if isinstance(v, tuple) else [v]
+    return sum(t.numel() * t.element_size() for t in ts
+               if isinstance(t, torch.Tensor))
+
+
+def phase_23c():
+    """(c) fft two-level on the constant coefficient (generate_uniform(16,
+    1024, 1024), kappa=None, unscaled: the DST solve of an inner box is
+    exact; Lanczos GenEO nu=16 with the DST inner solve, bsr, deflated,
+    f64, tol 1e-8), beside banded on the same vectors. Gates: recomputed
+    residuals <= 1e-8, each solve converged."""
+    import dataclasses
+
+    import torch
+    from hpddm_tpu_torch.examples import hetero
+    from hpddm_tpu_torch.models import diffusion2d
+    from hpddm_tpu_torch.options import Options
+    from hpddm_tpu_torch.precond.schwarz import Schwarz
+
+    S, N = 16, 1024
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    gen = diffusion2d.generate_uniform(S, N, N, overlap=1,
+                                       with_neumann=True)
+    t_gen = time.perf_counter() - t
+    opt = Options(tol=1e-8, **hetero.DEFAULTS)
+    opt["local_solver"] = "fft"
+    sch = Schwarz(gen.mats, gen.neighbors, gen.mappings, d=gen.d,
+                  options=opt, device="cuda")
+    sch.set_grid_geometry(gen.boxes, N, N)
+    sch.solve_gevp(gen.neumann, method="lanczos")
+    state, t_build = hetero.build_timed(sch)
+    f = torch.as_tensor(diffusion2d.padded_rhs(gen.f, sch.n_max),
+                        device="cuda")
+    rf = hetero.solve_report(sch, state, f, reps=1)
+    banded = local_solver_of(sch, "banded")
+    rb = hetero.solve_report(sch, dataclasses.replace(state, solver=banded),
+                             f, reps=1)
+    print(f"  (c) fft two-level, constant coefficient (1024^2/16, unscaled, "
+          f"{type(state.solver).__name__}): generate {t_gen:.3f} s, setup "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in sch.timings.items())
+          + f", build {t_build:.3f} s")
+    for name, r in (("fft", rf), ("banded", rb)):
+        print(f"    {name}: {r['iterations']} iterations, solve "
+              f"{r['solve_s']:.4f} s ({r['ms_per_it']:.2f} ms per "
+              f"iteration), recomputed rel. residual {r['relres']:.3e}, "
+              f"converged {r['converged']}")
+    check(max(rf["relres"], rb["relres"]) <= 1e-8 and rf["converged"]
+          and rb["converged"], f"(c) residuals fft {rf['relres']:.3e}, "
+          f"banded {rb['relres']:.3e}")
+    del state, sch, banded, f
+
+
+def phase_23d():
+    """(d) The dense Schwarz variant: one level at generate(16, 256, 256)
+    (n_max 4,356) with the dense blocks' bmm gmv and with the port's sparse
+    ``Schwarz.gmv`` (B1) as the user GMV, equal counts; the standard-EVP
+    coarse space (nu=5, deflated) at the test size (30x30, S=4) on the card
+    and on the host CPU, equal counts. GMRES(60), tol 1e-8. Returns B1's
+    record of the user-GMV path."""
+    import torch
+    from hpddm_tpu_torch.models import diffusion2d
+    from hpddm_tpu_torch.ops import dia_spmv as kmod
+    from hpddm_tpu_torch.options import Options
+    from hpddm_tpu_torch.precond import schwarz as sz
+    from hpddm_tpu_torch.precond.dense import DenseSchwarz
+    from hpddm_tpu_torch.solvers.gmres import gmres
+
+    def run(gen, opts, user, device, evp=False):
+        ds = DenseSchwarz([m.dense() for m in gen.mats], gen.neighbors,
+                          gen.mappings, d=gen.d, options=Options(**opts),
+                          user_gmv=user, device=device)
+        if evp:
+            ds.solve_evp()
+        t = time.perf_counter()
+        op = ds.build()
+        f = torch.as_tensor(diffusion2d.padded_rhs(gen.f, ds.n_max),
+                            device=device)
+        res = gmres(op, f, tol=1e-8, restart=60, max_it=200)
+        r = f - op.gmv(res.x)
+        w = ds.dec.d[:, :, None]
+        rel = float(torch.sqrt(torch.sum(w * r ** 2))
+                    / torch.sqrt(torch.sum(w * f ** 2)))
+        return res.iterations, rel, time.perf_counter() - t
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    S, N = 16, 256
+    gen = diffusion2d.generate(S, N, N, overlap=1)
+    its_d, rel_d, t_d = run(gen, {}, None, "cuda")
+    peak = torch.cuda.max_memory_allocated()
+    plain = count_plain_calls()
+    sch = sz.Schwarz(gen.mats, gen.neighbors, gen.mappings, d=gen.d,
+                     device="cuda")
+    ost = sch.operator_state()
+    kmod.launches = 0
+    plain[0] = 0
+    its_u, rel_u, t_u = run(gen, {}, lambda x: sz.gmv(ost, x), "cuda")
+    b1, plain_calls = kmod.launches, plain[0]
+    print(f"  (d) dense variant, generate({S}, {N}, {N}) (n_max "
+          f"{sch.n_max}; blocks and inverses "
+          f"{2 * S * sch.n_max ** 2 * 8 / 1e9:.2f} GB): dense bmm gmv "
+          f"{its_d} iterations, residual {rel_d:.3e}, build + solve "
+          f"{t_d:.2f} s, peak {peak / 2**30:.2f} GiB; the sparse "
+          f"Schwarz.gmv as the user GMV {its_u} iterations, residual "
+          f"{rel_u:.3e}, {t_u:.2f} s, B1 launches {b1}, plain-version calls "
+          f"{plain_calls}")
+    small = diffusion2d.generate(4, 30, 30, overlap=1)
+    evp = dict(schwarz_coarse_correction="deflated", geneo_nu=5)
+    inner = {dev: DenseSchwarz([m.dense() for m in small.mats],
+                               small.neighbors, small.mappings, d=small.d,
+                               device=dev) for dev in ("cuda", "cpu")}
+    its_c, rel_c, _ = run(small, evp, inner["cuda"].gmv, "cuda", evp=True)
+    its_h, rel_h, _ = run(small, evp, inner["cpu"].gmv, "cpu", evp=True)
+    print(f"    EVP (nu=5) + deflated, user GMV, 30x30 S=4: {its_c} "
+          f"iterations on the card (residual {rel_c:.3e}), {its_h} on the "
+          f"host CPU (residual {rel_h:.3e})")
+    check(its_d == its_u and rel_d <= 1e-6 and rel_u <= 1e-6,
+          f"(d) dense gmv {its_d} vs user gmv {its_u} iterations")
+    check(its_c == its_h and rel_c <= 1e-6,
+          f"(d) EVP card {its_c} vs CPU {its_h}")
+    check(b1 > 0 and plain_calls == 0, f"(d) B1 {b1}, plain {plain_calls}")
+    out = dia_model_record("dia_spmv dense-variant user GMV path", ost.A,
+                           b1)
+    del sch, ost
+    return out
+
+
+def phase_23e():
+    """(e) MAC Stokes (stokes2d.generate(16, N=STOKES_N, overlap=2, with
+    Neumann matrices), Schur-complement CG with GenEO nu=8 inner solves
+    (banded local solves through RCM, inner tol 1e-10; Lanczos with the
+    host banded factor; the block-sparse coarse assembly, whose
+    pseudo-inverse takes the zero vectors that Lanczos returns on the
+    subdomain with no neighbour, ROADMAP C18), outer tol 1e-8). Gates: outer residual <= 1e-8,
+    momentum residual <= 1e-6 of ||f||, divergence residual <= 1e-6
+    ||u||/h, fewer than 80 outer iterations, the ELL kernels launched, no
+    plain-version call. Returns the B4 and B5 records of the path."""
+    import torch
+    from hpddm_tpu_torch.models import stokes2d
+    from hpddm_tpu_torch.ops import ell_spmv as ek
+    from hpddm_tpu_torch.options import Options
+    from hpddm_tpu_torch.parallel import pexchange as pk
+    from hpddm_tpu_torch.precond.saddle import SaddleSolver
+
+    N = STOKES_N
+    t = time.perf_counter()
+    gen, B, f, g, h, neu = stokes2d.generate(16, N=N, overlap=2,
+                                             with_neumann=True)
+    t_gen = time.perf_counter() - t
+    plain = count_plain_calls()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in (ek, pk):
+        mod.launches = 0
+    plain[0] = 0
+    t = time.perf_counter()
+    sv = SaddleSolver(gen, B, options=Options(
+        tol=1e-10, max_it=400, schwarz_coarse_correction="deflated",
+        geneo_nu=8, coarse_assembly="bsr", local_solver="banded"),
+        neumann=neu, device="cuda")
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t
+    t = time.perf_counter()
+    res = sv.solve(f, g, tol=1e-8)
+    t_solve = time.perf_counter() - t
+    launches, plain_calls = (ek.launches, pk.launches), plain[0]
+    peak = torch.cuda.max_memory_allocated()
+    r1 = np.linalg.norm(gen.A_global @ res.u + B.T @ res.p - f) / \
+        np.linalg.norm(f)
+    r2 = np.linalg.norm(B @ res.u - g) / (np.linalg.norm(res.u) / h)
+    A = sv.state.A
+    print(f"  (e) Stokes N={N} ({B.shape[1]} velocity, {B.shape[0]} "
+          f"pressure unknowns), S=16, n_max {sv.sch.n_max} "
+          f"({type(A).__name__}), GenEO nu=8 inner solves at tol 1e-10, "
+          f"banded through RCM (bandwidths {sv.sch.rcm_bandwidths}; "
+          f"{factor_txt(sv.state.solver)}): "
+          f"generate {t_gen:.2f} s, setup {t_setup:.2f} s ("
+          + ", ".join(f"{k} {v:.3f}" for k, v in sv.sch.timings.items())
+          + f"), solve {t_solve:.2f} s; {res.outer_iterations} outer and "
+          f"{res.inner_iterations} inner iterations, outer residual "
+          f"{res.rel_res:.3e}, momentum residual {r1:.3e}, divergence "
+          f"residual {r2:.3e}; peak {peak / 2**30:.2f} GiB; ell_spmv "
+          f"launches {launches[0]}, pexchange {launches[1]}, plain-version "
+          f"calls {plain_calls}")
+    check(res.rel_res <= 1e-8 and r1 <= 1e-6 and r2 <= 1e-6
+          and res.outer_iterations < 80,
+          f"(e) outer {res.outer_iterations}, residuals {res.rel_res:.3e}, "
+          f"{r1:.3e}, {r2:.3e}")
+    check(min(launches) > 0 and plain_calls == 0,
+          f"(e) B4/B5 launches {launches}, plain {plain_calls}")
+    recs = ell_path_records("Stokes", A, sv.state.dec, launches,
+                            np.random.default_rng(235))
+    del sv
+    return recs
+
+
 def main():
     import torch
 
@@ -3158,9 +3674,11 @@ def main():
     slice5a = phase_slice_5a(unstr_cell, dia, grid5)
     del unstr_cell, grid5
     lap("phase 22")
+    slice5d = phase_slice_5d()
+    lap("phase 23")
 
     kernels = {"kernels": [dia, *spmm, *unstr, *banded, *canvas, *models,
-                           *slice5a]}
+                           *slice5a, *slice5d]}
     print(f"wall {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps(kernels))

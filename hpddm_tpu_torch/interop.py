@@ -33,7 +33,9 @@ Keys of ``arrays`` (numpy arrays unless stated):
   for an ORAS/SORAS state, or banded as
   ``Dinv``, ``cl``, ``cu``, ``idx_fwd``, ``msk_fwd``, ``idx_inv``,
   ``msk_inv`` (the JAX package's ``BandedSolver`` arrays) and ints
-  ``wy_max``, ``wx_max``, ``cw``;
+  ``wy_max``, ``wx_max``, ``cw``, or a DST solver as the dict ``dst``
+  (``dst_solver_from_numpy``), or a Chebyshev solver as the dict
+  ``cheby`` (``cheby_solver_from_numpy``);
 * coarse space (optional; absent for one level): ``Z``, ``E_inv`` (None
   in ``bsr`` mode), ``nu_loc``; int ``nu_max``; str ``correction``; and,
   for the nested modes of the level-2 options, str ``mode`` (``direct``
@@ -60,6 +62,8 @@ from hpddm_tpu_torch.core.formats import BatchedDIA, BatchedELL
 from hpddm_tpu_torch.device import DEFAULT, as_device
 from hpddm_tpu_torch.dtypes import as_torch_dtype, underlying
 from hpddm_tpu_torch.ops.banded_solve import BandedSolver
+from hpddm_tpu_torch.ops.cheby_solve import ChebyLocalSolver
+from hpddm_tpu_torch.ops.fft_solve import DSTMatmulSolver, FFTLocalSolver
 from hpddm_tpu_torch.ops.local_solve import LocalSolver
 from hpddm_tpu_torch.parallel.decomposition import Decomposition
 from hpddm_tpu_torch.parallel.grid import GridPlan
@@ -132,22 +136,9 @@ def state_from_numpy(arrays: Dict[str, Any], device=DEFAULT,
             regular=bool(grid["regular"]),
             sxw_s=tuple(map(tuple, grid["sxw_s"])),
             syw_s=tuple(map(tuple, grid["syw_s"]))))
-    if arrays.get("A_cols") is not None:
-        A = BatchedELL.from_slot_major(
-            f("A_values").transpose(1, 2).contiguous(),
-            t("A_cols", torch.int32).transpose(1, 2).contiguous(),
-            int(arrays["n_max"]))
-        if not dec.renumbered:
-            dec = dataclasses.replace(dec, pexch=build_plan(dec))
-    else:
-        hw = arrays.get("A_canvas_hw")
-        lp = arrays.get("A_values_lp")
-        A = BatchedDIA(values=f("A_values").contiguous(),
-                       offsets=tuple(int(o) for o in arrays["A_offsets"]),
-                       n_max=int(arrays["n_max"]),
-                       canvas_hw=None if hw is None else tuple(map(int, hw)),
-                       values_lp=None if lp is None else
-                       t("A_values_lp", torch.bfloat16).contiguous())
+    A = _matrix(arrays, int(arrays["n_max"]), device, dtype)
+    if isinstance(A, BatchedELL) and not dec.renumbered:
+        dec = dataclasses.replace(dec, pexch=build_plan(dec))
     coarse = None
     if arrays.get("Z") is not None:
         def opt(key, conv):
@@ -175,6 +166,10 @@ def state_from_numpy(arrays: Dict[str, Any], device=DEFAULT,
             wy_max=int(arrays["wy_max"]), wx_max=int(arrays["wx_max"]),
             n_max=int(arrays["n_max"]), S=int(arrays["S"]),
             cw=int(arrays["cw"]))
+    elif arrays.get("dst") is not None:
+        solver = dst_solver_from_numpy(arrays["dst"], device, dtype)
+    elif arrays.get("cheby") is not None:
+        solver = cheby_solver_from_numpy(arrays["cheby"], device, dtype)
     elif arrays.get("factor") is not None:
         kind = str(arrays.get("local_kind", "inv"))
         aux = arrays.get("aux")
@@ -190,3 +185,78 @@ def state_from_numpy(arrays: Dict[str, Any], device=DEFAULT,
     return SchwarzState(
         dec=dec, A=A, solver=solver, coarse=coarse,
         variant=str(arrays["variant"]), bc=None if bc is None else f("bc"))
+
+
+def _matrix(arrays: Dict[str, Any], n_max: int, device, dtype):
+    """The local matrices of ``arrays`` (``A_values`` with ``A_offsets``,
+    ``A_canvas_hw`` and ``A_values_lp`` for DIA, with ``A_cols`` for ELL,
+    the JAX package's layouts) as a port batch in dtype."""
+    vals = torch.as_tensor(np.array(arrays["A_values"]), device=device) \
+        .to(dtype)
+    if arrays.get("A_cols") is not None:
+        cols = torch.as_tensor(np.array(arrays["A_cols"]), device=device) \
+            .to(torch.int32)
+        return BatchedELL.from_slot_major(
+            vals.transpose(1, 2).contiguous(),
+            cols.transpose(1, 2).contiguous(), n_max)
+    hw = arrays.get("A_canvas_hw")
+    lp = arrays.get("A_values_lp")
+    return BatchedDIA(values=vals.contiguous(),
+                      offsets=tuple(int(o) for o in arrays["A_offsets"]),
+                      n_max=n_max,
+                      canvas_hw=None if hw is None else tuple(map(int, hw)),
+                      values_lp=None if lp is None else torch.as_tensor(
+                          np.array(lp), device=device)
+                      .to(torch.bfloat16).contiguous())
+
+
+def dst_solver_from_numpy(d: Dict[str, Any], device=DEFAULT, dtype=None):
+    """The port's DST solver from the leaves of the JAX package's: a
+    ``DSTMatmulSolver`` (keys ``Uy``, ``Ux``, ``inv_eigs``, ``idx_fwd``,
+    ``msk_fwd``, ``idx_inv``, ``msk_inv``, ints ``wy_max``, ``wx_max``,
+    ``n_max``, ``S``) or an ``FFTLocalSolver`` (``inv_eigs`` a tuple of
+    arrays, ``members`` a tuple of index tuples, ``shapes``, ``n_max``,
+    ``S``). Values in dtype (default the arrays' own), indices int64."""
+    device = as_device(device)
+
+    def f(a):
+        t = torch.as_tensor(np.array(a), device=device)
+        return t if dtype is None else t.to(as_torch_dtype(dtype))
+
+    def i(a):
+        return torch.as_tensor(np.array(a), device=device).to(torch.int64)
+    if "Uy" in d:
+        return DSTMatmulSolver(
+            Uy=f(d["Uy"]), Ux=f(d["Ux"]), inv_eigs=f(d["inv_eigs"]),
+            idx_fwd=i(d["idx_fwd"]), msk_fwd=f(d["msk_fwd"]),
+            idx_inv=i(d["idx_inv"]), msk_inv=f(d["msk_inv"]),
+            wy_max=int(d["wy_max"]), wx_max=int(d["wx_max"]),
+            n_max=int(d["n_max"]), S=int(d["S"]))
+    return FFTLocalSolver(
+        inv_eigs=tuple(f(a) for a in d["inv_eigs"]),
+        members=tuple(i(m) for m in d["members"]),
+        shapes=tuple(tuple(map(int, sh)) for sh in d["shapes"]),
+        n_max=int(d["n_max"]), S=int(d["S"]))
+
+
+def cheby_solver_from_numpy(d: Dict[str, Any], device=DEFAULT,
+                            dtype=torch.float64) -> ChebyLocalSolver:
+    """The port's ``ChebyLocalSolver`` from the JAX package's: its
+    matrices (``A_values`` and the layout keys of ``state_from_numpy``),
+    ``inner`` (a dict for ``dst_solver_from_numpy``, or None), ``dinv``,
+    ``scale`` (arrays or None), ``lo``, ``hi`` and int ``k``."""
+    device = as_device(device)
+    dtype = as_torch_dtype(dtype)
+
+    def f(key):
+        a = d.get(key)
+        return None if a is None else \
+            torch.as_tensor(np.array(a), device=device).to(dtype)
+    A = _matrix(d, int(np.asarray(d["A_values"]).shape[-1]
+                       if d.get("A_cols") is None else
+                       np.asarray(d["A_values"]).shape[1]), device, dtype)
+    inner = None if d.get("inner") is None else \
+        dst_solver_from_numpy(d["inner"], device, dtype)
+    return ChebyLocalSolver(A=A, inner=inner, dinv=f("dinv"),
+                            scale=f("scale"), lo=f("lo"), hi=f("hi"),
+                            k=int(d["k"]))

@@ -54,6 +54,17 @@ def _grid_of(size_world: int) -> tuple:
     return x_grid, size_world // x_grid
 
 
+def padded_rhs(f_list, n_max: int, dtype=np.float64) -> np.ndarray:
+    """The per-subdomain right-hand sides ``f_list`` (n_loc[s] rows of mu
+    columns, or vectors for mu=1) as one (S, n_max, mu) array, zero in the
+    pad rows."""
+    mu = np.reshape(f_list[0], (len(f_list[0]), -1)).shape[1]
+    f = np.zeros((len(f_list), n_max, mu), dtype=dtype)
+    for s, fs in enumerate(f_list):
+        f[s, : len(fs)] = np.reshape(fs, (len(fs), mu))
+    return f
+
+
 def rhs_values(ii: np.ndarray, jj: np.ndarray, Nx: int, Ny: int) -> np.ndarray:
     """Closed-form RHS (generate.cpp:72-88) at grid indices (ii, jj)."""
     dx, dy = 10.0 / Nx, 10.0 / Ny

@@ -37,17 +37,19 @@ and ``level_4+``). Slice 5a: the interface-first layout
 ``restriction``, ``statistics``, ``-hpddm_geneo_estimate_nu``, the dumps
 (``dump_matrices``, ``dump_eigenvectors``,
 ``-hpddm_level_2_dump_matrix``) and the bf16 value mirror of the
-operator product (``-hpddm_gmv_dtype bfloat16``). It puts everything on
-the card unless the caller passes ``device="cpu"``. The FFT and
-Chebyshev local solvers raise ``NotImplementedError`` naming slice 5d;
-complex64 matrices raise ``TypeError`` (ROADMAP C11).
+operator product (``-hpddm_gmv_dtype bfloat16``). Slice 5d: the DST
+(``fft``) and Chebyshev (``cheby``, ``dst_cheby``) local solvers of
+ops/fft_solve.py and ops/cheby_solve.py, and their Lanczos GenEO inner
+solves; they take real matrices only (``TypeError``, ROADMAP C16). It
+puts everything on the card unless the caller passes ``device="cpu"``.
+Complex64 matrices raise ``TypeError`` (ROADMAP C11).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import scipy.sparse as sp
@@ -62,6 +64,10 @@ from hpddm_tpu_torch.dtypes import HPDDM_EPS, HPDDM_PEN, as_torch_dtype
 from hpddm_tpu_torch.ops.banded_solve import (BandedSolver,
                                               build_banded_solver,
                                               build_banded_solver_rcm)
+from hpddm_tpu_torch.ops.cheby_solve import (ChebyLocalSolver, JacobiSolver,
+                                             _extract_dinv,
+                                             build_cheby_solver, with_dtype)
+from hpddm_tpu_torch.ops.fft_solve import build_fft_solver
 from hpddm_tpu_torch.ops.local_solve import (KINDS, LocalSolver,
                                              factor_parts, invert, promoted)
 from hpddm_tpu_torch.ops.spmv import dia_canvas_moves, spmm, spmm_muT
@@ -86,11 +92,6 @@ def _is_herm(m: MatrixCSR) -> bool:
     c = m.scipy(expand=True).tocsr()
     d = (c - c.conj().T).tocoo()
     return d.nnz == 0 or not np.any(d.data != 0)
-
-
-def _not_ported(what: str, where: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to hpddm_tpu_torch yet ({where})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,7 +165,9 @@ class CoarseState:
 class SchwarzState:
     dec: Decomposition
     A: object                     # batched local matrices (DIA/ELL/Dense)
-    solver: Union[LocalSolver, BandedSolver]
+    # LocalSolver, BandedSolver, a DST solver (ops/fft_solve.py) or
+    # ChebyLocalSolver: each has solve(b (S, n_max, mu))
+    solver: object
     coarse: Optional[CoarseState]
     variant: str                  # 'ras' | 'asm' | 'oras' | 'soras' | 'osm' | 'none'
     # Dirichlet boundary-condition values per row (Subdomain::boundaryCond,
@@ -780,18 +783,19 @@ class Schwarz:
           the assembled matrix, inverted one subdomain at a time as
           ``build`` inverts.
 
-        The FFT and Chebyshev inner solves raise (slice 5d). Returns
-        (lam (S, nu_max), V (S, n_max, nu_max)) on the device; the phases
-        go to ``timings``.
+        * ``local_solver=fft`` or ``dst_cheby``: the same CG preconditioned
+          by the DST solve of the grid boxes (``set_grid_geometry``
+          required); ``cheby``: by the Jacobi diagonal of the assembled
+          matrix (``hpddm_tpu/precond/schwarz.py:980-987``).
+
+        Returns (lam (S, nu_max), V (S, n_max, nu_max)) on the device; the
+        phases go to ``timings``.
         """
         from hpddm_tpu_torch.precond.geneo import solve_gevp_lanczos
 
         opt = self.opt
         dec = self.dec
         kind = opt.val("local_solver", prefix=self.prefix)
-        if kind in ("fft", "dst_cheby", "cheby"):
-            raise _not_ported(f"Lanczos GenEO with the {kind!r} inner solve",
-                              "ROADMAP queue A, slice 5d")
         t0 = time.perf_counter()
         # the shift from the caller's numbering: its mean sums the
         # diagonal in that order, as the JAX package's
@@ -828,13 +832,23 @@ class Schwarz:
                 x = Knb.solve(r)
                 return x + Knb.solve(r - apply_Aneu(x))
         else:
-            factor = torch.empty((dec.S, self.n_max, self.n_max),
-                                 dtype=self.A.values.dtype,
-                                 device=self.device)
-            for s in range(dec.S):
-                factor[s] = invert(batched_dense_from(self.A,
-                                                      slice(s, s + 1))[0])
-            prec = LocalSolver(kind="inv", factor=factor)
+            if kind in ("fft", "dst_cheby"):
+                self._check_real(kind)
+                boxes, Nx, Ny = self._geometry_for(kind)
+                prec = build_fft_solver(boxes, Nx, Ny, self.n_max,
+                                        dtype=dec.d.dtype,
+                                        device=self.device)
+            elif kind == "cheby":
+                self._check_real(kind)
+                prec = JacobiSolver(dinv=_extract_dinv(self.A, self.n_max))
+            else:
+                factor = torch.empty((dec.S, self.n_max, self.n_max),
+                                     dtype=self.A.values.dtype,
+                                     device=self.device)
+                for s in range(dec.S):
+                    factor[s] = invert(batched_dense_from(
+                        self.A, slice(s, s + 1))[0])
+                prec = LocalSolver(kind="inv", factor=factor)
 
             def apply_Ainv(r):
                 # 25 steps of preconditioned CG, batched over subdomains
@@ -876,6 +890,11 @@ class Schwarz:
         and each product with a factor is promoted
         (``hpddm_tpu/precond/schwarz.py:1230-1237``).
 
+        Local solvers: banded (``_build_banded``), ``fft`` (the DST solve
+        of the grid boxes, ``hpddm_tpu/precond/schwarz.py:1110-1127``),
+        ``cheby``/``dst_cheby`` (``_build_cheby``), else the dense factors
+        of ``_factorize``.
+
         -hpddm_reuse_preconditioner: the object keeps the state it
         builds, and the next build keeps its factorization, its coarse
         operator and its boundary rows, with the current operator A
@@ -904,11 +923,15 @@ class Schwarz:
             variant in ("oras", "soras", "osm") else None
         if kind == "banded":
             solver = self._build_banded(dt, src)
-        elif kind in KINDS:
-            solver = self._factorize(kind, dt, src)
+        elif kind == "fft":
+            self._check_real(kind)
+            boxes, Nx, Ny = self._geometry_for(kind)
+            solver = build_fft_solver(boxes, Nx, Ny, self.n_max, dtype=dt,
+                                      device=self.device)
+        elif kind in ("cheby", "dst_cheby"):
+            solver = self._build_cheby(kind, dt, src)
         else:
-            raise _not_ported(f"local_solver={kind!r}",
-                              "ROADMAP queue A, slice 5d")
+            solver = self._factorize(kind, dt, src)
         self._timed("factorize", t0)
 
         t0 = time.perf_counter()
@@ -952,6 +975,54 @@ class Schwarz:
                 aux[s] = a_s[0]
             del A_s, f_s, a_s
         return LocalSolver(kind=kind, factor=factor, aux=aux)
+
+    def _check_real(self, kind: str) -> None:
+        """The DST and Chebyshev local solvers are real-valued: the power
+        iteration's bounds take sum(v * w) without a conjugate, as the JAX
+        package's (``hpddm_tpu/ops/cheby_solve.py:138,149,157``), wrong for
+        a complex operator (ROADMAP queue C, C16)."""
+        if self.A.values.is_complex() or any(
+                np.iscomplexobj(np.zeros(0, m.dtype))
+                for m in self.optimized_mats or ()):
+            raise TypeError(f"local_solver={kind!r} takes real matrices "
+                            "only (ROADMAP queue C, C16)")
+
+    def _geometry_for(self, kind: str):
+        """(boxes, Nx, Ny) of ``set_grid_geometry``, which the DST solve
+        needs. The DST solve reads rows in box order, so the
+        interface-first layout raises ``ValueError``, as ``_build_banded``
+        does (the JAX package reads its permuted rows as box rows)."""
+        if self._grid_geometry is None:
+            raise ValueError(f"local_solver={kind} requires "
+                             "set_grid_geometry(boxes, Nx, Ny)")
+        if self.dec.renumbered:
+            raise ValueError(f"local_solver={kind} requires the "
+                             "grid-ordered (non-renumbered) layout")
+        return self._grid_geometry
+
+    def _build_cheby(self, kind: str, dtype, src) -> ChebyLocalSolver:
+        """k-step Chebyshev local solves (``hpddm_tpu/precond/schwarz.py:
+        1187-1222``) on the operator, or on the optimized matrices ``src``
+        packed as the operator (``fmt="auto"``, identity pads) for
+        oras/soras/osm; preconditioned by the DST solve with the diagonal
+        scaling (``dst_cheby``, grid geometry required) or by the Jacobi
+        diagonal (``cheby``); ``local_cheby_steps`` steps, the bounds from
+        ``local_cheby_power_its`` power steps."""
+        self._check_real(kind)
+        pfx = self.prefix
+        inner = None
+        if kind == "dst_cheby":
+            boxes, Nx, Ny = self._geometry_for(kind)
+            inner = build_fft_solver(boxes, Nx, Ny, self.n_max, dtype=dtype,
+                                     device=self.device)
+        A_it = self.A if src is None else pack_local_matrices(
+            self._permuted(src), n_max=self.n_max, fmt="auto",
+            pad_identity=True, device=self.device)
+        return build_cheby_solver(
+            with_dtype(A_it, dtype), self.dec.row_mask, inner=inner,
+            k=int(self.opt.val("local_cheby_steps", prefix=pfx)),
+            power_its=int(self.opt.val("local_cheby_power_its",
+                                       prefix=pfx)))
 
     def _build_banded(self, dtype, src=None) -> BandedSolver:
         """Exact block-tridiagonal local factors (ops/banded_solve.py):

@@ -9,7 +9,10 @@ of 2D elasticity node slabs against the CPU. Slice 5c: B1 and B2 in
 complex128 (against the plain version's explicit real operations, with
 non-finite imaginary parts and offset tensors), the Helmholtz gmv, ORAS
 apply and solve on the card against the CPU port with no plain-version
-call, and B3, B4 and B5 raising on complex.
+call, and B3, B4 and B5 raising on complex. Slices 5d + 5e(ii): the DST
+(both modes) and Chebyshev (DST and Jacobi inner) local solves and their
+solves, the dense Schwarz variant and the Stokes saddle-point solver on
+the card against the CPU port.
 
 This file imports no JAX, so it also runs on a machine without it:
 
@@ -895,3 +898,131 @@ def test_bf16_gmv_on_card_matches_cpu(cuda):
     want = gmv(st["cpu"], torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(y, want, rtol=1e-6,
                                atol=1e-6 * np.abs(want).max())
+
+
+@pytest.fixture(scope="module")
+def cheby_ops():
+    """Slice 5d: generate_uniform(4, 64, 64) with a contrast-100 channel,
+    set up on the card and on the CPU with grid geometry (canvas operator,
+    slab exchange); the dst_cheby states share the CPU state's bounds."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    from hpddm_tpu_torch.options import Options
+
+    gen = diffusion2d.generate_uniform(
+        4, 64, 64, overlap=1,
+        kappa=lambda x, y: np.where((y > 3.3) & (y < 6.6), 100.0, 1.0))
+    out = {}
+    for kind in ("dst_cheby", "cheby", "fft"):
+        for device in ("cuda", "cpu"):
+            sch = Schwarz(gen.mats, gen.neighbors, gen.mappings, d=gen.d,
+                          options=Options(local_solver=kind,
+                                          local_cheby_steps=12, tol=1e-8),
+                          device=device)
+            sch.set_grid_geometry(gen.boxes, 64, 64)
+            out[kind, device] = sch.build()
+    for kind in ("dst_cheby", "cheby"):
+        cpu = out[kind, "cpu"].solver
+        card = out[kind, "cuda"]
+        out[kind, "cuda"] = dataclasses.replace(
+            card, solver=dataclasses.replace(card.solver,
+                                             lo=cpu.lo.cuda(),
+                                             hi=cpu.hi.cuda()))
+    x = np.random.default_rng(5).normal(size=(4, out["fft", "cpu"].dec.n_max,
+                                              4))
+    return out, torch.as_tensor(x), gen
+
+
+@pytest.mark.parametrize("mu", [1, 4])
+@pytest.mark.parametrize("kind", ["dst_cheby", "cheby", "fft"])
+def test_local_solvers_on_card_match_cpu(cheby_ops, kind, mu, monkeypatch):
+    """One local solve of each slice-5d solver on the card against the CPU
+    port (the Chebyshev states on the same bounds); a Chebyshev solve on a
+    canvas DIA operator launches B1 (mu=1) or B2 (mu=4) once a step, and
+    never a plain version."""
+    out, x, _ = cheby_ops
+    calls = _count_plain_on_cuda(monkeypatch)
+    xc = x[:, :, :mu].contiguous()
+    before = (kmod.launches, kmod.spmm_launches)
+    got = out[kind, "cuda"].solver.solve(xc.cuda()).cpu().numpy()
+    want = out[kind, "cpu"].solver.solve(xc).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-10,
+                               atol=1e-10 * np.abs(want).max())
+    steps = 0 if kind == "fft" else 12
+    assert (kmod.launches - before[0], kmod.spmm_launches - before[1]) == \
+        ((steps, 0) if mu == 1 else (0, steps))
+    assert calls[0] == 0
+
+
+def test_dst_modes_agree_on_card(cheby_ops):
+    from hpddm_tpu_torch.ops.fft_solve import build_fft_solver
+
+    _, x, gen = cheby_ops
+    n_max = x.shape[1]
+    a, b = (build_fft_solver(gen.boxes, 64, 64, n_max, dtype=torch.float64,
+                             mode=m, device="cuda") for m in ("fft",
+                                                              "matmul"))
+    xg = x.cuda()
+    assert float((a.solve(xg) - b.solve(xg)).abs().max()) <= 1e-12
+
+
+@pytest.mark.parametrize("kind", ["dst_cheby", "fft"])
+def test_chebyshev_and_fft_solves_on_card_match_cpu(cheby_ops, kind):
+    from hpddm_tpu_torch.options import Options
+    from hpddm_tpu_torch.solvers.krylov import solve
+
+    out, _, gen = cheby_ops
+    f = np.zeros((4, out[kind, "cpu"].dec.n_max, 1))
+    for s in range(4):
+        f[s, : gen.n_loc[s]] = gen.f[s]
+    opt = Options(tol=1e-8, max_it=200)
+    res = solve(out[kind, "cuda"], torch.as_tensor(f, device="cuda"),
+                opt=opt)
+    ref = solve(out[kind, "cpu"], torch.as_tensor(f), opt=opt)
+    assert abs(res.iterations - ref.iterations) <= 1
+
+
+def test_dense_variant_and_saddle_on_card_match_cpu():
+    """The dense Schwarz variant (one level and EVP + deflated with a user
+    GMV) and the Stokes saddle-point solver (N=16, S=4, GenEO nu=4) take
+    the CPU port's counts on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    from hpddm_tpu_torch.models import stokes2d
+    from hpddm_tpu_torch.options import Options
+    from hpddm_tpu_torch.precond.dense import DenseSchwarz
+    from hpddm_tpu_torch.precond.saddle import SaddleSolver
+    from hpddm_tpu_torch.solvers.gmres import gmres
+
+    gen = diffusion2d.generate(4, 30, 30, overlap=1)
+    its = {}
+    for device in ("cuda", "cpu"):
+        blocks = [m.dense() for m in gen.mats]
+        inner = DenseSchwarz(blocks, gen.neighbors, gen.mappings, d=gen.d,
+                             device=device)
+        ds = DenseSchwarz(blocks, gen.neighbors, gen.mappings, d=gen.d,
+                          options=Options(schwarz_coarse_correction="deflated",
+                                          geneo_nu=5),
+                          user_gmv=inner.gmv, device=device)
+        ds.solve_evp()
+        f = np.zeros((4, ds.n_max, 1))
+        for s in range(4):
+            f[s, : gen.n_loc[s]] = gen.f[s]
+        res = gmres(ds.build(), torch.as_tensor(f, device=device), tol=1e-8,
+                    restart=60, max_it=200)
+        its[device] = res.iterations
+    assert its["cuda"] == its["cpu"]
+    sgen, B, sf, sg, _, neu = stokes2d.generate(4, N=16, overlap=2,
+                                                with_neumann=True)
+    out = {}
+    for device in ("cuda", "cpu"):
+        opt = Options(tol=1e-10, max_it=400,
+                      schwarz_coarse_correction="deflated", geneo_nu=4)
+        r = SaddleSolver(sgen, B, options=opt, neumann=neu,
+                         device=device).solve(sf, sg, tol=1e-8)
+        out[device] = r
+    assert out["cuda"].outer_iterations == out["cpu"].outer_iterations
+    assert abs(out["cuda"].inner_iterations
+               - out["cpu"].inner_iterations) <= 2
+    np.testing.assert_allclose(out["cuda"].u, out["cpu"].u, rtol=0,
+                               atol=1e-7)

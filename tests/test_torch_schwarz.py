@@ -213,11 +213,13 @@ def test_geneo_eigenvalues_match_jax(jax_setup):
 
 
 def test_unported_branches_raise(port_setup, jax_setup):
-    """The branches left out raise naming their slice; the nested
-    block-sparse coarse solve builds, and one coarse solve takes the JAX
-    package's inner iterations and values."""
+    """The FFT local solver without grid geometry raises ``ValueError``,
+    as in the JAX package; the nested block-sparse coarse solve builds,
+    and one coarse solve takes the JAX package's inner iterations and
+    values; Lanczos GenEO with the ``cheby`` inner solve (Jacobi-
+    preconditioned inner CG) gives the JAX package's eigenvalues."""
     gen, _ = port_setup
-    with pytest.raises(NotImplementedError, match="local_solver.*5d"):
+    with pytest.raises(ValueError, match="set_grid_geometry"):
         sz.Schwarz(gen.mats, gen.neighbors, gen.mappings, d=gen.d,
                    options=Options(local_solver="fft"), device="cpu").build()
     kw = dict(schwarz_coarse_correction="deflated", coarse_assembly="bsr",
@@ -234,27 +236,35 @@ def test_unported_branches_raise(port_setup, jax_setup):
     assert its == int(jits)
     np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=1e-12,
                                atol=1e-14)
-    with pytest.raises(NotImplementedError, match="cheby.*5d"):
-        sz.Schwarz(gen.mats, gen.neighbors, gen.mappings, d=gen.d,
-                   options=Options(local_solver="cheby"),
-                   device="cpu").solve_gevp(gen.neumann, method="lanczos")
+    lam, _ = sz.Schwarz(
+        gen.mats, gen.neighbors, gen.mappings, d=gen.d,
+        options=Options(local_solver="cheby"),
+        device="cpu")._solve_gevp_lanczos(gen.neumann, 6)
+    jlam, _ = jax_sz.Schwarz(
+        jgen.mats, jgen.neighbors, jgen.mappings, d=jgen.d,
+        options=JaxOptions(local_solver="cheby"))._solve_gevp_lanczos(
+            jgen.neumann, 6)
+    np.testing.assert_allclose(lam.numpy(), np.asarray(jlam), rtol=1e-8)
 
 
 @pytest.mark.parametrize("options,call,match", [
-    ({"local_solver": "fft"}, lambda sch, gen: sch.build(), "fft.*5d"),
+    ({"local_solver": "fft"}, lambda sch, gen: sch.build(),
+     "fft requires set_grid_geometry"),
     ({"local_solver": "dst_cheby"}, lambda sch, gen: sch.build(),
-     "dst_cheby.*5d"),
-    ({"local_solver": "cheby"}, lambda sch, gen: sch.build(), "cheby.*5d"),
+     "dst_cheby requires set_grid_geometry"),
+    ({"local_solver": "fft"}, lambda sch, gen: sch.solve_gevp(
+        gen.neumann, method="lanczos"), "fft requires set_grid_geometry"),
 ])
 def test_left_out_options_raise(port_setup, options, call, match):
-    """Options whose branches are not ported raise, naming their slice,
-    instead of running another path: the FFT and Chebyshev local solvers
-    (slice 5d). Slice 5a's options (reuse of a factorization, GenEO's
-    eigenvalue-count estimate, the bf16 operator mirror) run and are held
-    to the JAX package in tests/test_torch_features.py; factors in
-    another dtype than the operator's in tests/test_torch_krylov.py."""
+    """The DST local solve (``fft``, and the inner solve of ``dst_cheby``
+    and of their Lanczos GenEO) needs the grid boxes: without
+    ``set_grid_geometry`` each raises ``ValueError`` instead of running
+    another path, as the JAX package's builds do. The solvers themselves
+    are held to the JAX package in tests/test_torch_fft_cheby*.py; slice
+    5a's options in tests/test_torch_features.py; factors in another
+    dtype than the operator's in tests/test_torch_krylov.py."""
     gen, _ = port_setup
     sch = sz.Schwarz(gen.mats, gen.neighbors, gen.mappings, d=gen.d,
                      options=Options(**options), device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         call(sch, gen)
