@@ -173,7 +173,24 @@ Phases (any failure exits non-zero before the last line is printed):
    generate(16, 256, 256) with the bmm gmv and the sparse gmv as its user
    GMV (equal counts), EVP + deflated on the card and the host CPU; (e)
    MAC Stokes at N=``STOKES_N`` with GenEO and banded (RCM) inner solves
-   (block residuals, B4/B5 at its operator).
+   (block residuals, B4/B5 at its operator);
+24. slice 5e(i)a, FETI and BDD with exact solves (``phase_slice_5e``):
+   (a) tools/bench_feti.py's default cell through
+   examples/bench_feti.py (generate(64, 128, 128), f64, tol 1e-8): FETI in
+   the four preconditioners and BDD, dense and mfree, each within 1 of the
+   JAX package's CPU count (``FETI_JAX_ITS``), the averaged solution within
+   1e-6 of the direct solve; (b) the GenEO cell (generate(64, 256, 256,
+   contrast=1e4, checker=16)): FETI and BDD base (at their cap in both
+   packages) within 1, after solve_gevp(nu=6, feti_deflation=True)
+   converged, deflated below base, enriched not above, and within 10% of
+   the JAX package's counts (the pencil is degenerate at nu: ROADMAP C20);
+   (c) the scale cell generate(1024, 1024, 1024) (1,048,576 unknowns):
+   setup by phase and its peak, FETI (dirichlet) and BDD in the dense and
+   mfree coarse modes, best of 3 after a warm-up with the same count in
+   every repeat, ms per iteration, the K^+ bmm against its bound, true
+   residuals <= 1e-6 on A_global, FETI and BDD within 1e-6 of each other,
+   mfree FETI = dense, mfree BDD within 5 of dense, peak < 80 GB. Phase 24
+   takes at most 180 s, the whole run less than 1,100 s.
 
 Phase 5 drives the DIA path, phase 8 the unstructured path, phase 11 the
 multi-RHS path, phase 12 the banded grid path, phase 13 the banded
@@ -181,7 +198,8 @@ unstructured path, phase 14 the grid gmv (and its multi-RHS branch),
 phase 15 the flagship, phase 16 the ladder, phase 17 the elasticity
 flagship, phase 18 the 3D diffusion path, phase 19 the 3D elasticity
 path, phase 21 the Helmholtz path (native, four sources, real pair)
-and phase 23 the hetero dst_cheby, dense-variant and Stokes paths,
+and phase 23 the hetero dst_cheby, dense-variant and Stokes paths
+(phase 24's FETI/BDD paths launch no hand-written kernel),
 each with its kernels' launch counts set to 0 just before it and read just after; comparisons
 and timings come after the counts are read. Each phase's wall seconds
 are printed. The script prints one JSON line with the kernels' results
@@ -310,6 +328,24 @@ HETERO_JAX_BOUNDS = {
            0.0014747910632732534, 0.0014748876173585198,
            2.5033950805664062e-05, 6.453909335635124e-05,
            3.7697717827688446e-05, 2.503395080566407e-05]}
+# the JAX package's CPU f64 counts at smoke phase 24's cells (a)
+# tools/bench_feti.py's default, nonoverlap.generate(64, 128, 128), tol
+# 1e-8: FETI in each preconditioner and BDD, dense and mfree coarse modes;
+# (b) generate(64, 256, 256, contrast=1e4, checker=16), tol 1e-8: FETI and
+# BDD before and after solve_gevp(nu=6, feti_deflation=True);
+# tests/test_torch_substructure.py (-m slow) recomputes them. Phase 24
+# holds the card within 1 of each, (b)'s GenEO counts within 10%
+FETI_JAX_ITS = {
+    "a dense feti dirichlet": 20, "a dense feti lumped": 37,
+    "a dense feti superlumped": 53, "a dense feti none": 48,
+    "a dense bdd": 19, "a mfree feti dirichlet": 20,
+    "a mfree feti lumped": 37, "a mfree feti superlumped": 53,
+    "a mfree feti none": 48, "a mfree bdd": 19,
+    # base FETI and BDD stop at their cap (500) unconverged, in both
+    # packages; the GenEO counts depend on the eigensolver's basis (C20)
+    "b feti": 500, "b bdd": 500, "b feti deflated": 440,
+    "b bdd enriched": 476,
+}
 # the Stokes cell's grid: the JAX package's k-way partition of the MAC
 # velocity block puts a whole velocity component (a separate component of
 # A's graph) into one subdomain, n_max 65,373 at N=256, whose dense
@@ -3578,6 +3614,259 @@ def phase_23e():
     return recs
 
 
+# ----------------------------------------------------------------------
+# phase 24: slice 5e(i)a, FETI and BDD with exact solves
+# ----------------------------------------------------------------------
+
+def averaged(gen, u):
+    """The global vector of a substructured solution u (S, n_max, 1): each
+    node the mean of its copies."""
+    N = gen.A_global.shape[0]
+    acc = np.zeros(N)
+    cnt = np.zeros(N)
+    u = u[:, :, 0].cpu().numpy()
+    for s, g in enumerate(gen.gids):
+        acc[g] += u[s, : len(g)]
+        cnt[g] += 1
+    return acc / cnt
+
+
+def true_rel(gen, x):
+    r = gen.A_global @ x - gen.f_global
+    return float(np.linalg.norm(r) / np.linalg.norm(gen.f_global))
+
+
+def phase_slice_5e():
+    """Phase 24: slice 5e(i)a, FETI and BDD with exact solves: (a) the
+    parity cell, (b) the GenEO cell, (c) the scale cell."""
+    t = time.perf_counter()
+    print("phase 24: slice 5e(i)a (FETI and BDD: dense pseudo-inverses, "
+          "dense and mfree coarse projections, GenEO-substructuring)")
+    phase_24a()
+    release()
+    phase_24b()
+    release()
+    phase_24c()
+    release()
+    wall = time.perf_counter() - t
+    print(f"  phase 24 in all {wall:.1f} s")
+    check(wall <= 180, f"phase 24 took {wall:.1f} s (limit 180)")
+
+
+def phase_24a(device="cuda"):
+    """(a) tools/bench_feti.py's default cell through the port's twin:
+    every count within 1 of the JAX package's, solutions within 1e-6 of
+    the direct solve."""
+    import scipy.sparse.linalg as spla
+    import torch
+    from hpddm_tpu_torch.examples import bench_feti
+    from hpddm_tpu_torch.models import nonoverlap
+    from hpddm_tpu_torch.precond.substructure import feti_solve
+
+    args = bench_feti.parser().parse_args(["--device", device])
+    gen = nonoverlap.generate(args.S, args.N, args.N)
+    x_direct = spla.spsolve(gen.A_global.tocsc(), gen.f_global)
+    dev = torch.device(device)
+    print(f"  (a) generate({args.S}, {args.N}, {args.N}): "
+          f"{gen.A_global.shape[0]} unknowns, n_max {max(gen.n_loc)}")
+    for mode in ("dense", "mfree"):
+        out = bench_feti.run_mode(gen, mode, args, dev, np.float64,
+                                  log=lambda m: print("    " + m))
+        st, f = out["state"], out["f"]
+        runs = {"feti dirichlet": out["feti"]["res"],
+                "bdd": out["bdd"]["res"]}
+        for p in ("lumped", "superlumped", "none"):
+            runs[f"feti {p}"] = feti_solve(st, f, tol=args.tol,
+                                           max_it=args.max_it, precond=p)
+        for name, res in runs.items():
+            want = FETI_JAX_ITS[f"a {mode} {name}"]
+            err = (np.linalg.norm(averaged(gen, res.u) - x_direct)
+                   / np.linalg.norm(x_direct))
+            print(f"    [{mode}] {name}: {res.iterations} iterations (JAX "
+                  f"package on the CPU {want}), rel. residual "
+                  f"{float(res.rel_res.max()):.3e}, against the direct "
+                  f"solve {err:.3e}")
+            check(abs(res.iterations - want) <= 1,
+                  f"(a) {mode} {name}: {res.iterations} iterations, the JAX "
+                  f"package's {want}")
+            check(err <= 1e-6, f"(a) {mode} {name}: {err:.3e} from the "
+                  "direct solve")
+        del out, st, f, runs
+
+
+def phase_24b(device="cuda"):
+    """(b) the GenEO cell: base counts within 1 of the JAX package's,
+    deflated FETI below base, enriched BDD not above it, both converged
+    and within 10% of the JAX package's counts."""
+    import scipy.sparse.linalg as spla
+    import torch
+    from hpddm_tpu_torch.device import synchronize
+    from hpddm_tpu_torch.examples.bench_feti import rhs
+    from hpddm_tpu_torch.models import nonoverlap
+    from hpddm_tpu_torch.precond.substructure import (Substructure,
+                                                      bdd_solve, feti_solve)
+
+    t = time.perf_counter()
+    gen = nonoverlap.generate(64, 256, 256, contrast=1e4, checker=16)
+    t_gen = time.perf_counter() - t
+    x_direct = spla.spsolve(gen.A_global.tocsc(), gen.f_global)
+    t = time.perf_counter()
+    sub = Substructure(gen.mats, gen.neighbors, gen.mappings, device=device)
+    t_setup = time.perf_counter() - t
+    f = torch.as_tensor(rhs(gen, sub.n_max, np.float64), device=device)
+    print(f"  (b) generate(64, 256, 256, contrast=1e4, checker=16): "
+          f"{gen.A_global.shape[0]} unknowns, n_max {sub.n_max}, generated "
+          f"in {t_gen:.2f} s, setup {t_setup:.2f} s ("
+          + ", ".join(f"{k} {v:.3f}" for k, v in sub.timings.items()) + ")")
+    tol, max_it = 1e-8, 500
+    runs = {"feti": feti_solve(sub.state, f, tol=tol, max_it=max_it),
+            "bdd": bdd_solve(sub.state, f, tol=tol, max_it=max_it)}
+    t = time.perf_counter()
+    st = sub.solve_gevp(nu=6, feti_deflation=True)
+    synchronize(sub.device)
+    t_gevp = time.perf_counter() - t
+    runs["feti deflated"] = feti_solve(st, f, tol=tol, max_it=max_it)
+    runs["bdd enriched"] = bdd_solve(st, f, tol=tol, max_it=max_it)
+    print(f"    solve_gevp(nu=6, feti_deflation=True) {t_gevp:.2f} s: "
+          f"deflation space {st.G_def.shape[1]} columns, balancing ranks "
+          f"{int(st.sb_r_loc.min())}-{int(st.sb_r_loc.max())}")
+    for name, res in runs.items():
+        want = FETI_JAX_ITS[f"b {name}"]
+        err = (np.linalg.norm(averaged(gen, res.u) - x_direct)
+               / np.linalg.norm(x_direct))
+        print(f"    {name}: {res.iterations} iterations (JAX package on the "
+              f"CPU {want}), rel. residual {float(res.rel_res.max()):.3e}, "
+              f"against the direct solve {err:.3e}")
+        if name in ("feti", "bdd"):
+            check(abs(res.iterations - want) <= 1,
+                  f"(b) {name}: {res.iterations} iterations, the JAX "
+                  f"package's {want}")
+        else:
+            check(float(res.rel_res.max()) <= tol and err <= 1e-5,
+                  f"(b) {name} did not converge")
+            check(abs(res.iterations - want) <= 0.1 * want,
+                  f"(b) {name}: {res.iterations} iterations, more than 10% "
+                  f"from the JAX package's {want}")
+    check(runs["feti deflated"].iterations < runs["feti"].iterations,
+          "(b) deflated FETI not below base")
+    check(runs["bdd enriched"].iterations <= runs["bdd"].iterations,
+          "(b) enriched BDD above base")
+    del sub, st, runs, f
+
+
+def phase_24c(S=1024, N=1024, device="cuda"):
+    """(c) the scale cell generate(1024, 1024, 1024): setup by phase, both
+    solvers in both coarse modes, the K^+ bmm against its bound. (Smaller
+    S, N and the CPU rehearse it.)"""
+    import torch
+    from hpddm_tpu_torch.device import synchronize
+    from hpddm_tpu_torch.examples.bench_feti import rhs
+    from hpddm_tpu_torch.models import nonoverlap
+    from hpddm_tpu_torch.precond import substructure as sb
+    from hpddm_tpu_torch.timing import cold_events_ms
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+
+    def timed(fn, reps=3):
+        out = fn()
+        synchronize(dev)
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = fn()
+            synchronize(dev)
+            times.append(time.perf_counter() - t0)
+        return min(times), times, out
+
+    t = time.perf_counter()
+    gen = nonoverlap.generate(S, N, N)
+    t_gen = time.perf_counter() - t
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    sub = sb.Substructure(gen.mats, gen.neighbors, gen.mappings,
+                          device=dev)
+    t_setup = time.perf_counter() - t
+    setup_peak = torch.cuda.max_memory_allocated() if cuda else 0
+    st = sub.state
+    S, n = st.K_pinv.shape[:2]
+    nb, ni = st.bidx.shape[1], st.iidx.shape[1]
+    nbytes = {k: getattr(st, k).numel() * 8 for k in ("K_pinv", "Kii_inv",
+                                                       "K_bi", "G")}
+    print(f"  (c) generate({S}, {N}, {N}): {gen.A_global.shape[0]} "
+          f"unknowns, n_max {n}, nb_max {nb}, ni_max {ni}, "
+          f"{st.N_l} multipliers, nc {st.nc} floating; generated in "
+          f"{t_gen:.2f} s; setup {t_setup:.2f} s ("
+          + ", ".join(f"{k} {v:.3f}" for k, v in sub.timings.items())
+          + f"), setup peak {setup_peak / 2**30:.2f} GiB; "
+          + ", ".join(f"{k} {v / 1e9:.2f} GB" for k, v in nbytes.items()))
+    del sub
+    f = torch.as_tensor(rhs(gen, n, np.float64), device=dev)
+    t = time.perf_counter()
+    st_m = sb.with_coarse_mode(st, "mfree")
+    synchronize(dev)
+    t_mfree = time.perf_counter() - t
+    print(f"    mfree coarse projection on the same factors {t_mfree:.2f} s "
+          f"(G^H G from the slots; G {nbytes['G'] / 1e9:.2f} GB and W "
+          f"{S * nb * S * st.Sb_kernels.shape[2] * 8 / 1e9:.2f} GB not "
+          "formed)")
+    tol, max_it = 1e-8, 500
+    xs, its, ms_it = {}, {}, {}
+    for mode, state in (("dense", st), ("mfree", st_m)):
+        for name, solve in (("feti", sb.feti_solve), ("bdd", sb.bdd_solve)):
+            counts = []
+
+            def run():
+                res = solve(state, f, tol=tol, max_it=max_it)
+                counts.append(res.iterations)
+                return res
+            best, times, res = timed(run)
+            x = averaged(gen, res.u)
+            rel = true_rel(gen, x)
+            key = (mode, name)
+            xs[key], its[key] = x, res.iterations
+            ms_it[key] = 1e3 * best / max(res.iterations, 1)
+            print(f"    [{mode}] {name.upper()}: {res.iterations} iterations "
+                  f"in each of {len(counts)} solves, rel. residual "
+                  f"{float(res.rel_res.max()):.3e}, true rel. residual "
+                  f"{rel:.3e}; best of 3 after a warm-up {best:.4f} s ("
+                  + ", ".join(f"{x:.4f}" for x in times)
+                  + f"), {ms_it[key]:.3f} ms an iteration")
+            check(len(set(counts)) == 1,
+                  f"(c) {mode} {name}: counts differ across repeats {counts}")
+            check(rel <= 1e-6, f"(c) {mode} {name}: true rel. residual "
+                  f"{rel:.3e}")
+            del res
+    for mode in ("dense", "mfree"):
+        d = (np.linalg.norm(xs[(mode, "feti")] - xs[(mode, "bdd")])
+             / np.linalg.norm(xs[(mode, "feti")]))
+        print(f"    [{mode}] FETI and BDD solutions differ by {d:.3e}")
+        check(d <= 1e-6, f"(c) {mode}: FETI and BDD differ by {d:.3e}")
+    check(its[("mfree", "feti")] == its[("dense", "feti")],
+          f"(c) mfree FETI {its[('mfree', 'feti')]} iterations, dense "
+          f"{its[('dense', 'feti')]}")
+    check(abs(its[("mfree", "bdd")] - its[("dense", "bdd")]) <= 5,
+          f"(c) mfree BDD {its[('mfree', 'bdd')]} iterations, dense "
+          f"{its[('dense', 'bdd')]}")
+    if cuda:
+        # the K^+ product of every FETI iteration: the inverses read once
+        w = torch.randn((S, n, 1), dtype=torch.float64, device=dev)
+        k_ms = cold_events_ms(lambda: sb._k_pinv_apply(st, w), reps=10)
+        b_ms, b_by = bound(nbytes["K_pinv"] + 2 * w.numel() * 8,
+                           2 * S * n * n, torch.float64)
+        print(f"    K^+ bmm (S={S}, n={n}, mu=1): {k_ms:.3f} ms, bound "
+              f"{b_ms:.3f} ms ({b_by}; {100 * b_ms / k_ms:.1f}% of it), "
+              f"{100 * k_ms / ms_it[('dense', 'feti')]:.1f}% of a dense "
+              "FETI iteration")
+        peak = torch.cuda.max_memory_allocated()
+        print(f"    peak device memory {peak / 2**30:.2f} GiB "
+              "(torch.cuda.max_memory_allocated, setup included)")
+        check(peak < 80e9, f"(c) peak {peak / 1e9:.1f} GB")
+        del w
+    del st, st_m, f
+
+
 def main():
     import torch
 
@@ -3676,10 +3965,14 @@ def main():
     lap("phase 22")
     slice5d = phase_slice_5d()
     lap("phase 23")
+    phase_slice_5e()
+    lap("phase 24")
 
     kernels = {"kernels": [dia, *spmm, *unstr, *banded, *canvas, *models,
                            *slice5a, *slice5d]}
-    print(f"wall {time.perf_counter() - t_start:.1f} s")
+    wall = time.perf_counter() - t_start
+    print(f"wall {wall:.1f} s")
+    check(wall < 1100, f"the smoke took {wall:.1f} s (limit 1100)")
     print(smi)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

@@ -48,6 +48,13 @@ Keys of ``arrays`` (numpy arrays unless stated):
   levels-4+ tuples ``chain_Z``, ``chain_E``, ``chain_inv`` (arrays),
   ``chain_modes``, ``chain_tols``, ``chain_max_its``;
 * ``variant`` (str) and ``bc`` (array or None).
+
+``substructure_state_from_numpy`` does the same for a ``hpddm_tpu``
+``SubstructureState`` (FETI/BDD, its dense and mfree coarse modes), with
+its interface decomposition ``dec_b`` given by the decomposition keys
+above (``decomposition_from_numpy``), so that the port's FETI and BDD
+runtimes run on the JAX package's factors, independently of how each
+package's eigh picks its kernel bases.
 """
 
 from __future__ import annotations
@@ -98,9 +105,6 @@ def state_from_numpy(arrays: Dict[str, Any], device=DEFAULT,
     def f(key):
         return t(key, dtype)
 
-    def r(key):
-        return t(key, underlying(dtype))
-
     def i(key):
         return t(key, torch.int64)
 
@@ -114,19 +118,7 @@ def state_from_numpy(arrays: Dict[str, Any], device=DEFAULT,
     def kept(key):
         return kept_array(arrays[key])
 
-    def b(key):
-        return t(key, torch.bool)
-
-    dec = Decomposition(
-        n_loc=t("n_loc", torch.int32),
-        d=r("d"), if_idx=i("if_idx"), if_gid=i("if_gid"),
-        if_mask=b("if_mask"), ov_mask=b("ov_mask"), mult=r("mult"),
-        partners=i("partners"), inv_map=i("inv_map"), is_if=b("is_if"),
-        sub_shifts=tuple(arrays.get("sub_shifts", ())),
-        perm=None if arrays.get("perm") is None else i("perm"),
-        iperm=None if arrays.get("iperm") is None else i("iperm"),
-        renumbered=bool(arrays.get("renumbered", False)),
-        **{k: int(arrays[k]) for k in DEC_INT_KEYS})
+    dec = decomposition_from_numpy(arrays, device, underlying(dtype))
     grid = arrays.get("grid")
     if grid is not None:
         dec = dataclasses.replace(dec, grid=GridPlan(
@@ -185,6 +177,80 @@ def state_from_numpy(arrays: Dict[str, Any], device=DEFAULT,
     return SchwarzState(
         dec=dec, A=A, solver=solver, coarse=coarse,
         variant=str(arrays["variant"]), bc=None if bc is None else f("bc"))
+
+
+def decomposition_from_numpy(arrays: Dict[str, Any], device,
+                             rdtype) -> Decomposition:
+    """The port's ``Decomposition`` from the decomposition keys of
+    ``state_from_numpy`` (its POU and multiplicities in rdtype)."""
+    def t(key, dt):
+        return torch.as_tensor(np.array(arrays[key]), device=device).to(dt)
+
+    def i(key):
+        return t(key, torch.int64)
+
+    def b(key):
+        return t(key, torch.bool)
+
+    return Decomposition(
+        n_loc=t("n_loc", torch.int32),
+        d=t("d", rdtype), if_idx=i("if_idx"), if_gid=i("if_gid"),
+        if_mask=b("if_mask"), ov_mask=b("ov_mask"), mult=t("mult", rdtype),
+        partners=i("partners"), inv_map=i("inv_map"), is_if=b("is_if"),
+        sub_shifts=tuple(arrays.get("sub_shifts", ())),
+        perm=None if arrays.get("perm") is None else i("perm"),
+        iperm=None if arrays.get("iperm") is None else i("iperm"),
+        renumbered=bool(arrays.get("renumbered", False)),
+        **{k: int(arrays[k]) for k in DEC_INT_KEYS})
+
+
+# SubstructureState fields carried as floating tensors, index tensors and
+# boolean masks; G, GtG_inv, G_def, FG_def and GFG_inv are optional
+SUB_FLOAT = ("K_pinv", "kernels", "S_b", "S_b_pinv", "Sb_kernels", "K_bi",
+             "K_bb", "scaling", "Kii_inv", "lam_sign")
+SUB_INDEX = ("r_loc", "sb_r_loc", "bidx", "iidx", "lam_id", "lam_loc",
+             "kern_off", "sub_gid")
+SUB_MASK = ("b_mask", "i_mask")
+SUB_OPTIONAL = ("G", "GtG_inv", "G_def", "FG_def", "GFG_inv")
+
+
+def substructure_state_from_numpy(arrays: Dict[str, Any], device=DEFAULT,
+                                  dtype=torch.float64):
+    """A port ``SubstructureState`` from the arrays of a JAX package
+    ``SubstructureState`` flattened to numpy: the fields of ``SUB_FLOAT``,
+    ``SUB_INDEX``, ``SUB_MASK`` and (each optional, None where absent)
+    ``SUB_OPTIONAL``; ints ``N_l``, ``nc``, ``n_max``, ``S_total``; str
+    ``coarse_mode`` (``dense`` or ``mfree``); and ``dec_b``, a dict of the
+    interface decomposition's keys as ``state_from_numpy`` takes them. The
+    gather lists of B and B^T are derived from the slot arrays, so the
+    port's runtime runs on the JAX package's factors."""
+    from hpddm_tpu_torch.precond.substructure import (SLICE_B,
+                                                      SubstructureState,
+                                                      plan_of)
+    device = as_device(device)
+    dtype = as_torch_dtype(dtype)
+    mode = str(arrays.get("coarse_mode", "dense"))
+    if mode not in ("dense", "mfree"):
+        raise NotImplementedError(f"substructuring_coarse={mode}: {SLICE_B}")
+
+    def t(a, dt):
+        return torch.as_tensor(np.array(a), device=device).to(dt)
+
+    fields = {k: t(arrays[k], dtype) for k in SUB_FLOAT}
+    fields.update({k: t(arrays[k], torch.int64) for k in SUB_INDEX})
+    fields.update({k: t(arrays[k], torch.bool) for k in SUB_MASK})
+    fields.update({k: None if arrays.get(k) is None else t(arrays[k], dtype)
+                   for k in SUB_OPTIONAL})
+    ints = {k: int(arrays[k]) for k in ("N_l", "nc", "n_max", "S_total")}
+    plan = plan_of(arrays["lam_id"], arrays["lam_loc"], arrays["lam_sign"],
+                   arrays["bidx"], arrays["b_mask"], arrays["iidx"],
+                   arrays["i_mask"], arrays["r_loc"], arrays["kern_off"],
+                   int(np.shape(arrays["kernels"])[2]), ints["N_l"],
+                   ints["nc"], ints["n_max"], device)
+    dec_b = decomposition_from_numpy(arrays["dec_b"], device,
+                                     underlying(dtype))
+    return SubstructureState(dec_b=dec_b, plan=plan, coarse_mode=mode,
+                             **fields, **ints)
 
 
 def _matrix(arrays: Dict[str, Any], n_max: int, device, dtype):

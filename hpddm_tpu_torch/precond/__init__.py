@@ -1,1 +1,2 @@
-"""Preconditioners: overlapping Schwarz with GenEO coarse spaces."""
+"""Preconditioners: overlapping Schwarz with GenEO coarse spaces, and
+FETI/BDD substructuring (``substructure``)."""

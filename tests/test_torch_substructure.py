@@ -1,0 +1,458 @@
+"""Port vs JAX package on the CPU in f64: FETI and BDD substructuring
+(``precond/substructure.py``), the exact paths (dense local pseudo-inverses,
+the ``dense`` and ``mfree`` coarse modes, GenEO-substructuring).
+
+Each case of ``tests/test_substructure.py`` but the Chebyshev one, at its
+sizes, tolerances and iteration caps:
+
+* the port's iteration count is exactly the JAX package's on the same
+  inputs (its solves jitted with the state as an argument, one compile per
+  configuration), and its solution meets the JAX test's bound against the
+  direct solve; at the two high-contrast cases, whose counts follow
+  rounding in both packages (ROADMAP C20), within ``SLACK``;
+* the factors (K^+, S_b, S_b^+, K_ii^-1, K_bi, K_bb, the scaling) agree to
+  1e-10 relative; the kernel projectors Q Q^T, the range projector
+  G (G^T G)^-1 G^T and the projection P agree; the kernel dimensions and
+  the multiplier slots are equal. Kernel bases from eigh are not unique
+  (signs, rotations), so no column is compared;
+* the JAX package's states carried by ``interop.substructure_state_from_numpy``
+  give the JAX package's operator to 1e-12 and its counts;
+* GenEO-substructuring: the pencil's smallest eigenvalues at the mirrored
+  case sit in a degenerate eigenspace cut by nu (ROADMAP C20), so the
+  selected traces are each eigensolver's choice: the port's enrichment on
+  the JAX package's eigenpairs takes its counts exactly, on its own
+  eigenpairs it meets the JAX test's assertions (deflated below base,
+  enriched not above, solutions exact);
+* the Chebyshev coarse mode and the banded local mode raise
+  ``NotImplementedError`` naming slice 5e(i)b; complex matrices raise
+  ``TypeError`` naming C19.
+
+The ``-m slow`` case recomputes with the JAX package the counts that the
+GPU smoke holds the card to (``chip_smoke.FETI_JAX_ITS``).
+"""
+
+import os
+import sys
+
+import numpy as np
+import pytest
+import scipy.sparse.linalg as spla
+import torch
+
+import jax
+import jax.numpy as jnp
+from hpddm_tpu.models import nonoverlap as jax_nonoverlap
+from hpddm_tpu.options import Options as JaxOptions
+from hpddm_tpu.precond import geneo as jax_geneo
+from hpddm_tpu.precond import substructure as jax_sub
+
+from hpddm_tpu_torch import interop
+from hpddm_tpu_torch.core.csr import MatrixCSR
+from hpddm_tpu_torch.examples.bench_feti import rhs
+from hpddm_tpu_torch.models import nonoverlap
+from hpddm_tpu_torch.options import Options
+from hpddm_tpu_torch.precond import substructure as sub
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import chip_smoke  # noqa: E402
+
+# the counts of the high-contrast cases follow rounding (C20: the thread
+# count of either package moves them by up to 3); the slack of the JAX
+# package's own mfree BDD comparison (tests/test_substructure.py:165)
+SLACK = 5
+
+jax_feti = jax.jit(jax_sub.feti_solve,
+                   static_argnames=("tol", "max_it", "precond", "axis_name"))
+jax_bdd = jax.jit(jax_sub.bdd_solve,
+                  static_argnames=("tol", "max_it", "axis_name"))
+
+
+class Case:
+    """One generated problem in both packages, set up by both."""
+
+    def __init__(self, args, kw, opts):
+        self.jgen = jax_nonoverlap.generate(*args, **kw)
+        self.gen = nonoverlap.generate(*args, **kw)
+        self.jsub = jax_sub.Substructure(
+            self.jgen.mats, self.jgen.neighbors, self.jgen.mappings,
+            options=JaxOptions(**opts))
+        self.sub = sub.Substructure(
+            self.gen.mats, self.gen.neighbors, self.gen.mappings,
+            options=Options(**opts), device="cpu")
+        f = rhs(self.gen, self.sub.n_max, np.float64)
+        self.f, self.jf = torch.as_tensor(f), jnp.asarray(f)
+
+    def counts(self, tol, max_it, st=None, jst=None, precond="dirichlet"):
+        """(port, JAX) FETI and BDD counts on the given (or the built)
+        states."""
+        st = self.sub.state if st is None else st
+        jst = self.jsub.state if jst is None else jst
+        mine = sub.feti_solve(st, self.f, tol=tol, max_it=max_it,
+                              precond=precond)
+        theirs = jax_feti(jst, self.jf, tol=tol, max_it=max_it,
+                          precond=precond)
+        return mine, int(theirs.iterations)
+
+    def bdd_counts(self, tol, max_it, st=None, jst=None):
+        st = self.sub.state if st is None else st
+        jst = self.jsub.state if jst is None else jst
+        mine = sub.bdd_solve(st, self.f, tol=tol, max_it=max_it)
+        return mine, int(jax_bdd(jst, self.jf, tol=tol,
+                                 max_it=max_it).iterations)
+
+
+@pytest.fixture(scope="module")
+def case():
+    cache = {}
+
+    def get(args, contrast=None, checker=None, **opts):
+        kw = {k: v for k, v in (("contrast", contrast), ("checker", checker))
+              if v is not None}
+        key = (args, tuple(sorted(kw.items())), tuple(sorted(opts.items())))
+        if key not in cache:
+            cache[key] = Case(args, kw, opts)
+        return cache[key]
+    return get
+
+
+def jax_state_arrays(st):
+    """A JAX package SubstructureState as the numpy dict of
+    interop.substructure_state_from_numpy."""
+    out = {k: np.asarray(getattr(st, k)) for k in
+           interop.SUB_FLOAT + interop.SUB_INDEX + interop.SUB_MASK}
+    out.update({k: None if getattr(st, k) is None
+                else np.asarray(getattr(st, k)) for k in interop.SUB_OPTIONAL})
+    out.update(N_l=st.N_l, nc=st.nc, n_max=st.n_max, S_total=st.S_total,
+               coarse_mode=st.coarse_mode)
+    dec = st.dec_b
+    d = {k: np.asarray(getattr(dec, k)) for k in (
+        "n_loc", "d", "if_idx", "if_gid", "if_mask", "ov_mask", "mult",
+        "partners", "inv_map", "is_if")}
+    d.update({k: getattr(dec, k) for k in interop.DEC_INT_KEYS})
+    d["sub_shifts"] = dec.sub_shifts
+    out["dec_b"] = d
+    return out
+
+
+def _check_solution(gen, u, atol=1e-6):
+    """Average duplicated dofs, compare against the direct solve (the JAX
+    test's check)."""
+    N = gen.A_global.shape[0]
+    x_direct = spla.spsolve(gen.A_global.tocsc(), gen.f_global)
+    acc = np.zeros(N)
+    cnt = np.zeros(N)
+    u_np = u.cpu().numpy()
+    for s in range(len(gen.mats)):
+        acc[gen.gids[s]] += u_np[s, : gen.n_loc[s], 0]
+        cnt[gen.gids[s]] += 1
+    x = acc / cnt
+    err = np.linalg.norm(x - x_direct) / np.linalg.norm(x_direct)
+    assert err < atol, f"relative error {err}"
+    for s in range(len(gen.mats)):
+        np.testing.assert_allclose(u_np[s, : gen.n_loc[s], 0],
+                                   x_direct[gen.gids[s]], atol=100 * atol,
+                                   rtol=0.1)
+
+
+def _rel(a, b):
+    a = np.asarray(a)
+    b = b.cpu().numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
+    return np.abs(a - b).max() / max(np.abs(a).max(), 1e-300)
+
+
+# ----------------------------------------------------------------------
+# the mirrored cases of tests/test_substructure.py
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("args", [(4, 20, 20), (2, 16, 24)])
+def test_splitting_and_feti(case, args):
+    c = case(args)
+    res, want = c.counts(1e-10, 200)
+    assert res.iterations == want
+    assert res.iterations < 60
+    _check_solution(c.gen, res.u, atol=1e-6)
+
+
+def test_feti_floating_subdomain(case):
+    """3x3 boxes: the center subdomain is floating (nontrivial kernel)."""
+    c = case((9, 24, 24))
+    assert int(c.sub.state.r_loc.max()) >= 1
+    res, want = c.counts(1e-10, 300)
+    assert res.iterations == want
+    _check_solution(c.gen, res.u, atol=1e-5)
+
+
+def test_feti_operator_symmetry(case):
+    """F = B K^+ B^T is symmetric PSD on the multiplier space, and equals
+    the JAX package's F (its own setup to 1e-12; the JAX state carried by
+    interop to 1e-12)."""
+    c = case((4, 12, 12))
+    st = c.sub.state
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.normal(size=(st.N_l, 1)))
+    y = torch.as_tensor(rng.normal(size=(st.N_l, 1)))
+    Fx, Fy = sub.feti_operator(st, x), sub.feti_operator(st, y)
+    lhs, rhs_ = float(torch.sum(y * Fx)), float(torch.sum(x * Fy))
+    assert abs(lhs - rhs_) < 1e-10 * max(abs(lhs), 1.0)
+    assert float(torch.sum(x * Fx)) >= -1e-10
+    X = rng.normal(size=(st.N_l, 3))
+    ref = np.asarray(jax_sub.feti_operator(c.jsub.state, jnp.asarray(X)))
+    assert _rel(ref, sub.feti_operator(st, torch.as_tensor(X))) < 1e-12
+    carried = interop.substructure_state_from_numpy(
+        jax_state_arrays(c.jsub.state), device="cpu")
+    assert _rel(ref, sub.feti_operator(carried, torch.as_tensor(X))) < 1e-12
+
+
+@pytest.mark.parametrize("args", [(4, 20, 20), (9, 24, 24)])
+def test_bdd(case, args):
+    c = case(args)
+    res, want = c.bdd_counts(1e-10, 300)
+    assert res.iterations == want
+    assert res.iterations < 80
+    _check_solution(c.gen, res.u, atol=1e-5)
+
+
+@pytest.mark.parametrize("precond", ["dirichlet", "lumped", "superlumped",
+                                     "none"])
+def test_feti_preconditioner_variants(case, precond):
+    """FetiPrcndtnr::{DIRICHLET,LUMPED,SUPERLUMPED,NONE}
+    (HPDDM_enum.hpp:39-44): the counts and the preconditioner itself."""
+    c = case((4, 16, 16))
+    res, want = c.counts(1e-9, 300, precond=precond)
+    assert res.iterations == want
+    _check_solution(c.gen, res.u, atol=1e-5)
+    X = np.random.default_rng(1).normal(size=(c.sub.state.N_l, 2))
+    ref = jax_sub.feti_precond(c.jsub.state, jnp.asarray(X), variant=precond)
+    assert _rel(ref, sub.feti_precond(c.sub.state, torch.as_tensor(X),
+                                      precond)) < 1e-12
+
+
+def test_geneo_enrichment(case):
+    """Schur::solveGEVP enrichment (HPDDM_schur.hpp:161-271) at the JAX
+    test's high-contrast split (cond(K) about 1e7, 76-108 iterations):
+    the counts there follow rounding (C20), so the port is held within
+    ``SLACK`` of the JAX package, on its own factors and on the JAX
+    package's carried by interop (measured: equal but base BDD, 107
+    against 108). On the JAX package's pencil eigenpairs the port's
+    enrichment (balancing QR, the F-orthogonal deflation space) takes its
+    counts (76, 55 measured), and so does the port's runtime on the JAX
+    package's enriched state; on the port's own eigenpairs (another basis
+    of the degenerate eigenspace, C20: 66 and 42 measured) the JAX test's
+    assertions hold: deflated FETI below base, enriched BDD not above,
+    both solutions exact."""
+    c = case((9, 24, 24), contrast=1e4, checker=6)
+    base, jbase = c.counts(1e-9, 400)
+    bbase, jbbase = c.bdd_counts(1e-9, 400)
+    assert abs(base.iterations - jbase) <= SLACK
+    assert abs(bbase.iterations - jbbase) <= SLACK
+    jst0 = c.jsub.state
+    carried0 = interop.substructure_state_from_numpy(jax_state_arrays(jst0),
+                                                     device="cpu")
+    assert abs(sub.feti_solve(carried0, c.f, tol=1e-9,
+                              max_it=400).iterations - jbase) <= SLACK
+    assert abs(sub.bdd_solve(carried0, c.f, tol=1e-9,
+                             max_it=400).iterations - jbbase) <= SLACK
+
+    jst = jax_sub.Substructure(c.jgen.mats, c.jgen.neighbors,
+                               c.jgen.mappings).solve_gevp(
+        nu=6, feti_deflation=True)
+    D = np.asarray(jst0.scaling)
+    Sb = np.asarray(jst0.S_b)
+    lam, V = jax_geneo.solve_gevp_dense(
+        jnp.asarray(Sb), jnp.asarray(Sb * D[:, :, None] * D[:, None, :]), 6)
+    on_jax = sub.solve_gevp(carried0, nu=6, feti_deflation=True,
+                            pencil=(np.array(lam), np.array(V)))
+    assert np.array_equal(on_jax.sb_r_loc.numpy(), np.asarray(jst.sb_r_loc))
+    assert on_jax.G_def.shape == jst.G_def.shape
+    jdefl = int(jax_feti(jst, c.jf, tol=1e-9, max_it=400).iterations)
+    jenr = int(jax_bdd(jst, c.jf, tol=1e-9, max_it=400).iterations)
+    for st in (on_jax, interop.substructure_state_from_numpy(
+            jax_state_arrays(jst), device="cpu")):
+        defl = sub.feti_solve(st, c.f, tol=1e-9, max_it=400)
+        enr = sub.bdd_solve(st, c.f, tol=1e-9, max_it=400)
+        assert abs(defl.iterations - jdefl) <= SLACK
+        assert abs(enr.iterations - jenr) <= SLACK
+
+    st = sub.solve_gevp(c.sub.state, nu=6, feti_deflation=True)
+    defl = sub.feti_solve(st, c.f, tol=1e-9, max_it=400)
+    assert defl.iterations < base.iterations
+    _check_solution(c.gen, defl.u, atol=1e-5)
+    enr = sub.bdd_solve(st, c.f, tol=1e-9, max_it=400)
+    assert enr.iterations <= bbase.iterations
+    _check_solution(c.gen, enr.u, atol=1e-5)
+
+
+def test_matrix_free_coarse_feti_bdd(case):
+    """-hpddm_substructuring_coarse mfree: no dense G, no balancing basis W;
+    exact, so the same counts as dense, and the JAX package's mfree counts.
+    ``with_coarse_mode`` on the dense state equals a fresh mfree build."""
+    dense = case((9, 24, 24))
+    mf = case((9, 24, 24), substructuring_coarse="mfree")
+    assert mf.sub.state.G is None and mf.sub.state.coarse_mode == "mfree"
+    r_dense, _ = dense.counts(1e-10, 300)
+    r_mf, want = mf.counts(1e-10, 300)
+    assert r_mf.iterations == want == r_dense.iterations
+    _check_solution(mf.gen, r_mf.u, atol=1e-5)
+    b_dense, _ = dense.bdd_counts(1e-10, 300)
+    b_mf, bwant = mf.bdd_counts(1e-10, 300)
+    assert b_mf.iterations == bwant
+    assert abs(b_mf.iterations - b_dense.iterations) <= 5
+    _check_solution(mf.gen, b_mf.u, atol=1e-5)
+    derived = sub.with_coarse_mode(dense.sub.state, "mfree")
+    assert derived.G is None
+    assert _rel(mf.sub.state.GtG_inv, derived.GtG_inv) < 1e-12
+    assert sub.feti_solve(derived, dense.f, tol=1e-10,
+                          max_it=300).iterations == r_mf.iterations
+
+
+def test_stiffness_scaling(case):
+    """-hpddm_substructuring_scaling stiffness on a heterogeneous split.
+    The scaling is the JAX package's to the bit; the count follows
+    rounding (C20: the JAX package's own is 71, 73 or 74 as XLA runs on 8,
+    1 or 2 threads), so the port is held within ``SLACK`` of it."""
+    c = case((4, 20, 20), contrast=1e3, substructuring_scaling="stiffness")
+    assert np.array_equal(np.asarray(c.jsub.state.scaling),
+                          c.sub.state.scaling.numpy())
+    res, want = c.counts(1e-9, 400)
+    assert abs(res.iterations - want) <= SLACK
+    _check_solution(c.gen, res.u, atol=1e-5)
+    assert res.iterations < 400
+
+
+# ----------------------------------------------------------------------
+# factors, operators and the slot plan
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("args,contrast", [((4, 20, 20), None),
+                                           ((9, 24, 24), None),
+                                           ((9, 24, 24), 1e4)])
+def test_factors_match_the_jax_package(case, args, contrast):
+    c = case(args, contrast=contrast, checker=6 if contrast else None)
+    a, b = c.jsub.state, c.sub.state
+    tol = 1e-10 if contrast is None else 1e-8      # cond(K) ~ 1e7 at 1e4
+    for k in ("K_pinv", "S_b", "S_b_pinv", "Kii_inv", "K_bi", "K_bb",
+              "scaling"):
+        assert _rel(getattr(a, k), getattr(b, k)) < tol, k
+    for k in ("lam_id", "lam_loc", "lam_sign", "bidx", "iidx", "b_mask",
+              "i_mask", "r_loc", "sb_r_loc", "kern_off"):
+        assert np.array_equal(np.asarray(getattr(a, k)),
+                              getattr(b, k).numpy()), k
+    assert (a.N_l, a.nc, a.n_max) == (b.N_l, b.nc, b.n_max)
+    Ka, Kb = np.asarray(a.kernels), b.kernels.numpy()
+    assert _rel(Ka @ Ka.transpose(0, 2, 1), Kb @ Kb.transpose(0, 2, 1)) < tol
+    Sa, Sb = np.asarray(a.Sb_kernels), b.Sb_kernels.numpy()
+    assert _rel(Sa @ Sa.transpose(0, 2, 1), Sb @ Sb.transpose(0, 2, 1)) < tol
+    Ga, Gb = np.asarray(a.G), b.G.numpy()
+    assert _rel(Ga @ np.asarray(a.GtG_inv) @ Ga.T,
+                Gb @ b.GtG_inv.numpy() @ Gb.T) < tol
+    # G^T G is fixed up to the kernel columns' signs: compare |.|
+    assert _rel(np.abs(Ga.T @ Ga), np.abs(Gb.T @ Gb)) < tol
+    X = np.random.default_rng(2).normal(size=(a.N_l, 2))
+    assert _rel(jax_sub.feti_project(a, jnp.asarray(X)),
+                sub.feti_project(b, torch.as_tensor(X))) < tol
+    U = np.random.default_rng(4).normal(size=(a.S_total, a.n_max, 2))
+    assert _rel(jax_sub._kernel_project(a, jnp.asarray(U)),
+                sub._kernel_project(b, torch.as_tensor(U))) < tol
+    for k in ("d", "if_idx", "if_gid", "if_mask", "partners"):
+        assert np.array_equal(np.asarray(getattr(a.dec_b, k)),
+                              getattr(b.dec_b, k).numpy()), k
+
+
+def test_b_and_bt_are_adjoint(case):
+    """<B u, lambda> = <u, B^T lambda>, and both equal the JAX package's
+    operators (B^T to the bit: at most three terms, summed in slot order)."""
+    c = case((9, 24, 24))
+    st = c.sub.state
+    rng = np.random.default_rng(3)
+    u = rng.normal(size=(9, st.n_max, 2))
+    lam = rng.normal(size=(st.N_l, 2))
+    Bu = sub.b_apply(st, torch.as_tensor(u)).numpy()
+    Btl = sub.bt_apply(st, torch.as_tensor(lam)).numpy()
+    assert abs(np.sum(Bu * lam) - np.sum(u * Btl)) < 1e-12 * np.abs(Bu).sum()
+    assert np.array_equal(Bu, np.asarray(jax_sub.b_apply(
+        c.jsub.state, jnp.asarray(u))))
+    assert np.array_equal(Btl, np.asarray(jax_sub.bt_apply(
+        c.jsub.state, jnp.asarray(lam))))
+
+
+def test_unported_modes_raise(case):
+    c = case((4, 12, 12))
+    g = c.gen
+    for opts in (dict(substructuring_coarse="cheby"),
+                 dict(substructuring_local="banded")):
+        with pytest.raises(NotImplementedError, match=r"5e\(i\)b"):
+            sub.Substructure(g.mats, g.neighbors, g.mappings,
+                             options=Options(**opts), device="cpu")
+    with pytest.raises(NotImplementedError, match=r"5e\(i\)b"):
+        sub.with_coarse_mode(c.sub.state, "cheby")
+    arrays = jax_state_arrays(c.jsub.state)
+    arrays["coarse_mode"] = "cheby"
+    with pytest.raises(NotImplementedError, match=r"5e\(i\)b"):
+        interop.substructure_state_from_numpy(arrays, device="cpu")
+    cmats = [MatrixCSR(m.scipy().astype(np.complex128)) for m in g.mats]
+    with pytest.raises(TypeError, match="C19"):
+        sub.Substructure(cmats, g.neighbors, g.mappings, device="cpu")
+
+
+def test_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    g = nonoverlap.generate(2, 8, 8)
+    with pytest.raises(RuntimeError, match="cuda"):
+        sub.Substructure(g.mats, g.neighbors, g.mappings)
+
+
+# ----------------------------------------------------------------------
+# the constants of the GPU smoke
+# ----------------------------------------------------------------------
+
+@pytest.mark.slow
+def test_smoke_constants_are_the_jax_counts():
+    """``FETI_JAX_ITS``, the counts that smoke phase 24 holds the card to
+    (within 1): the JAX package's CPU f64 counts at cell (a),
+    ``tools/bench_feti.py``'s default ``generate(64, 128, 128)`` at tol 1e-8
+    (FETI in each preconditioner and BDD, dense and mfree), and cell (b),
+    ``generate(64, 256, 256, contrast=1e4, checker=16)`` (FETI and BDD
+    before and after ``solve_gevp(nu=6, feti_deflation=True)``, the latter
+    within the smoke's 10%); the port on the CPU takes the base counts
+    exactly. About 70 s on four cores."""
+    want = chip_smoke.FETI_JAX_ITS
+    got = {}
+    gen = jax_nonoverlap.generate(64, 128, 128)
+    for mode in ("dense", "mfree"):
+        js = jax_sub.Substructure(gen.mats, gen.neighbors, gen.mappings,
+                                  options=JaxOptions(
+                                      substructuring_coarse=mode))
+        f = jnp.asarray(rhs(gen, js.n_max, np.float64))
+        for p in ("dirichlet", "lumped", "superlumped", "none"):
+            got[f"a {mode} feti {p}"] = int(jax_feti(
+                js.state, f, tol=1e-8, max_it=500, precond=p).iterations)
+        got[f"a {mode} bdd"] = int(jax_bdd(js.state, f, tol=1e-8,
+                                           max_it=500).iterations)
+    gen = jax_nonoverlap.generate(64, 256, 256, contrast=1e4, checker=16)
+    js = jax_sub.Substructure(gen.mats, gen.neighbors, gen.mappings)
+    f = jnp.asarray(rhs(gen, js.n_max, np.float64))
+    got["b feti"] = int(jax_feti(js.state, f, tol=1e-8,
+                                 max_it=500).iterations)
+    got["b bdd"] = int(jax_bdd(js.state, f, tol=1e-8, max_it=500).iterations)
+    st = js.solve_gevp(nu=6, feti_deflation=True)
+    got["b feti deflated"] = int(jax_feti(st, f, tol=1e-8,
+                                          max_it=500).iterations)
+    got["b bdd enriched"] = int(jax_bdd(st, f, tol=1e-8,
+                                        max_it=500).iterations)
+    # the GenEO counts of (b) follow the basis of a degenerate pencil and
+    # rounding (C20: 440/476 on 8 threads, 442/464 on 4), as the smoke's
+    # 10% window allows; every other count is exact
+    geneo = ("b feti deflated", "b bdd enriched")
+    assert {k: v for k, v in got.items() if k not in geneo} == \
+        {k: v for k, v in want.items() if k not in geneo}
+    for k in geneo:
+        assert abs(got[k] - want[k]) <= 0.1 * want[k], (k, got[k], want[k])
+    port = nonoverlap.generate(64, 256, 256, contrast=1e4, checker=16)
+    ps = sub.Substructure(port.mats, port.neighbors, port.mappings,
+                          device="cpu")
+    fp = torch.as_tensor(rhs(port, ps.n_max, np.float64))
+    assert sub.feti_solve(ps.state, fp, tol=1e-8,
+                          max_it=500).iterations == want["b feti"]
+    assert sub.bdd_solve(ps.state, fp, tol=1e-8,
+                         max_it=500).iterations == want["b bdd"]
