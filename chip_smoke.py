@@ -190,16 +190,39 @@ Phases (any failure exits non-zero before the last line is printed):
    every repeat, ms per iteration, the K^+ bmm against its bound, true
    residuals <= 1e-6 on A_global, FETI and BDD within 1e-6 of each other,
    mfree FETI = dense, mfree BDD within 5 of dense, peak < 80 GB. Phase 24
-   takes at most 180 s, the whole run less than 1,100 s.
+   takes at most 180 s;
+25. slices 5e(i)b and 5f (``phase_slice_5eb``), every cell with banded
+   local solves (K^+ refined on banded factors, implicit S_b through B1/B2,
+   Chebyshev S_b^+): (a) generate(64, 128, 128) in the dense, mfree and
+   cheby coarse modes, FETI (dirichlet, lumped, none) and BDD against the
+   JAX package's CPU counts ``FETI5B_JAX_ITS`` (dirichlet exact, lumped and
+   none within 1: C22; BDD in C21's window, which is exact), solutions
+   within 1e-6 of the direct solve; (b) the GenEO cell (contrast 1e4,
+   checker 16) in the cheby coarse mode, where nothing converges in
+   either package (C23): FETI before and after Lanczos solve_gevp(nu=6,
+   feti_deflation=True) at a cap of 150, BDD base and enriched at 5,
+   base FETI's and BDD's residuals within a factor 2 of the JAX package's
+   at the same caps (``FETI5B_JAX_RES``), the deflated residual below a
+   tenth of base's; (c) the scale cell generate(16,
+   512, 512) (128^2 local boxes, 262,144 unknowns; generate(64, 1024, 1024)
+   cut to 16 subdomains for the run's time limit): setup by phase, factor
+   bytes, FETI and BDD in the mfree and cheby coarse modes to 1e-8, FETI
+   best of 3 and each BDD solve once (host-paced), true residuals <= 1e-6,
+   the device-busy share of a one-iteration BDD solve, peak < 80 GB; (d) LeastSquaresSolver at
+   256x256 (S=16, one level and GenEO, both to 1e-8, GenEO below 0.7 of
+   one level), spsd_neumann GenEO at 60x60/S=8, and the five new example
+   twins on matrix files written there; B1/B2 records at (b)'s and (c)'s
+   shapes. The whole run takes less than 1,100 s.
 
 Phase 5 drives the DIA path, phase 8 the unstructured path, phase 11 the
 multi-RHS path, phase 12 the banded grid path, phase 13 the banded
 unstructured path, phase 14 the grid gmv (and its multi-RHS branch),
 phase 15 the flagship, phase 16 the ladder, phase 17 the elasticity
 flagship, phase 18 the 3D diffusion path, phase 19 the 3D elasticity
-path, phase 21 the Helmholtz path (native, four sources, real pair)
-and phase 23 the hetero dst_cheby, dense-variant and Stokes paths
-(phase 24's FETI/BDD paths launch no hand-written kernel),
+path, phase 21 the Helmholtz path (native, four sources, real pair),
+phase 23 the hetero dst_cheby, dense-variant and Stokes paths and phase 25
+the banded FETI/BDD paths (phase 24's dense FETI/BDD paths launch no
+hand-written kernel),
 each with its kernels' launch counts set to 0 just before it and read just after; comparisons
 and timings come after the counts are read. Each phase's wall seconds
 are printed. The script prints one JSON line with the kernels' results
@@ -346,6 +369,26 @@ FETI_JAX_ITS = {
     "b feti": 500, "b bdd": 500, "b feti deflated": 440,
     "b bdd enriched": 476,
 }
+# the JAX package's CPU f64 counts at smoke phase 25's cells with banded
+# locals (-hpddm_substructuring_local banded): (a) generate(64, 128, 128),
+# tol 1e-8, FETI in three preconditioners and BDD, in the dense, mfree and
+# cheby coarse modes (the same over start keys of the Chebyshev bounds,
+# C21); and ``FETI5B_JAX_RES``, the relative residuals at (b)
+# generate(64, 256, 256, contrast=1e4, checker=16), cheby coarse, where no
+# solve converges in either package (at a cap of 500, FETI 4.3e-05 and
+# deflated 1.2e-07, BDD near 1: the Chebyshev S_b^+ degree is clipped at
+# 128 while kappa(D S_b D) is about 1.1e4, ROADMAP C23): FETI before and
+# after solve_gevp(nu=6, feti_deflation=True) at a cap of 150, BDD base
+# and enriched at a cap of 5. tests/test_torch_substructure_banded.py
+# (-m slow) recomputes them
+FETI5B_JAX_ITS = {f"a {m} {k}": v for m in ("dense", "mfree", "cheby")
+                  for k, v in (("feti dirichlet", 20), ("feti lumped", 37),
+                               ("feti none", 48), ("bdd", 19))}
+FETI5B_CAPS = {"feti": 150, "bdd": 5}
+FETI5B_JAX_RES = {"b feti": 0.006865564823952121,
+                  "b feti deflated": 0.00023356406604713772,
+                  "b bdd": 2.9158138919087255,
+                  "b bdd enriched": 2.380734024639147}
 # the Stokes cell's grid: the JAX package's k-way partition of the MAC
 # velocity block puts a whole velocity component (a separate component of
 # A's graph) into one subdomain, n_max 65,373 at N=256, whose dense
@@ -1389,19 +1432,26 @@ def phase_multi_card(card):
     return recs
 
 
-def device_busy_ms(fn):
+def device_busy_ms(fn, cpu_ops=True, warmup=True):
     """(wall ms, device-busy ms) of one call of ``fn()`` under
     torch.profiler: the kernels' and copies' device time against the
     synchronized wall time of the call (the profiler's own overhead is
     in the wall time). Device busy is None where the profiler records no
-    device time."""
+    device time. ``cpu_ops=False`` records the device activity only (a
+    call of tens of thousands of launches, where the host operators'
+    events would cost the profiler's post-processing many seconds);
+    ``warmup=False`` leaves out the call before the profiled one (for a
+    path that has just run)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
+    acts = [ProfilerActivity.CUDA]
+    if cpu_ops:
+        acts.insert(0, ProfilerActivity.CPU)
+    with profile(activities=acts, acc_events=True) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -2013,9 +2063,9 @@ def phase_ladder():
     plain = count_plain_calls()
     kmod.launches = kmod.spmm_launches = kmod.muT_launches = 0
     plain[0] = 0
-    r32, st32 = ladder.run(prob, np.float32)
+    r32, st32 = ladder.run(prob, np.float32, reps=1)
     del st32
-    r64, st64 = ladder.run(prob, np.float64)
+    r64, st64 = ladder.run(prob, np.float64, reps=1)
     b1, b2, b3 = (kmod.launches, kmod.spmm_launches - kmod.muT_launches,
                   kmod.muT_launches)
     plain_calls = plain[0]
@@ -3252,7 +3302,7 @@ def phase_23b():
     generate_uniform(16, 1024, 1024), contrast 1e4, Jacobi-scaled,
     dst_cheby k=32, Lanczos GenEO nu=16 with the DST inner solve, bsr,
     deflated, f64, tol 1e-8): its path (GenEO, build, one solve) with the
-    launch counts, then the solve best of 3 after a warm-up; banded on the
+    launch counts, then the solve timed once after a warm-up; banded on the
     same GenEO vectors; one local solve at mu=1 and 4 of dst_cheby, cheby,
     fft and banded; where a dst_cheby apply spends its time. Gates:
     recomputed residuals <= 1e-8; on the JAX package's bounds
@@ -3288,7 +3338,7 @@ def phase_23b():
     res = solve(state, f, opt=sch.opt)
     solve_b1 = kmod.launches - launches0
     b1, b2, plain_calls = kmod.launches, kmod.spmm_launches, plain[0]
-    r = hetero.solve_report(sch, state, f, reps=3)
+    r = hetero.solve_report(sch, state, f, reps=1)
     peak = torch.cuda.max_memory_allocated()
     sol = state.solver
     print(f"  (b) heterogeneous cell: generate_uniform({S}, {N}, {N}), "
@@ -3299,8 +3349,8 @@ def phase_23b():
                                    phases.items()) + "; of which " +
           ", ".join(f"{k} {v:.3f} s" for k, v in sch.timings.items()))
     print(f"    dst_cheby: {r['iterations']} iterations (the JAX package's "
-          f"CPU counts by start vector {HETERO_JAX_ITS}), solve {r['solve_s']:.4f} s (best "
-          f"of 3 after a warm-up), {r['ms_per_it']:.2f} ms per iteration, "
+          f"CPU counts by start vector {HETERO_JAX_ITS}), solve {r['solve_s']:.4f} s (one "
+          f"solve after two warm-ups), {r['ms_per_it']:.2f} ms per iteration, "
           f"recomputed rel. residual {r['relres']:.3e}; peak device memory "
           f"{peak / 2**30:.2f} GiB")
     print(f"    launches on the path: dia_spmv (B1) {geneo_launches[0]} in "
@@ -3867,6 +3917,448 @@ def phase_24c(S=1024, N=1024, device="cuda"):
     del st, st_m, f
 
 
+# ----------------------------------------------------------------------
+# phase 25: slices 5e(i)b and 5f, banded FETI/BDD, Chebyshev coarse
+# solves, least squares, the algebraic splitting and the last twins
+# ----------------------------------------------------------------------
+
+def dia_counts():
+    """(B1, B2) launches since the last reset."""
+    from hpddm_tpu_torch.ops import dia_spmv as kmod
+    return kmod.launches, kmod.spmm_launches
+
+
+def ell_counts():
+    """(B4, B5) launches since the last reset."""
+    from hpddm_tpu_torch.ops import ell_spmv as ek
+    from hpddm_tpu_torch.parallel import pexchange as pk
+    return ek.launches, pk.launches
+
+
+def reset_counts():
+    """Every kernel's launch count to 0 (the main path's counts from
+    here)."""
+    from hpddm_tpu_torch.ops import dia_spmv as kmod
+    from hpddm_tpu_torch.ops import ell_spmv as ek
+    from hpddm_tpu_torch.parallel import pexchange as pk
+
+    kmod.launches = kmod.spmm_launches = kmod.muT_launches = 0
+    ek.launches = pk.launches = 0
+
+
+def banded_substructure(gen, device, **opts):
+    """The port's banded Substructure of a nonoverlap problem."""
+    from hpddm_tpu_torch.options import Options
+    from hpddm_tpu_torch.precond.substructure import Substructure
+
+    return Substructure(gen.mats, gen.neighbors, gen.mappings,
+                        options=Options(substructuring_local="banded",
+                                        **opts),
+                        kernels=gen.kernels, grid_shapes=gen.grid_shapes,
+                        slot_maps=gen.slot_maps, device=device)
+
+
+def phase_slice_5eb():
+    """Phase 25: slices 5e(i)b and 5f: (a) the banded parity cell, (b) the
+    banded GenEO cell, (c) the banded scale cell, (d) least squares, the
+    algebraic SPSD splitting and the new example twins. Returns the B1/B2
+    records at the slice's shapes."""
+    t = time.perf_counter()
+    print("phase 25: slices 5e(i)b and 5f (banded FETI/BDD, Chebyshev "
+          "coarse solves, least squares, spsd_neumann, the last twins)")
+    launches = {}
+    phase_25a(launches=launches)
+    release()
+    A_b, nd = phase_25b(launches=launches)
+    release()
+    A_c, ncb = phase_25c(launches=launches)
+    release()
+    phase_25d()
+    release()
+    recs = [dia_model_record("dia_spmv banded FETI/BDD scale cell", A_c,
+                             launches["c"][0]),
+            dia_model_record("dia_spmm banded BDD coarse assembly "
+                             "(mfree W^T S W panel)", A_c, launches["c"][1],
+                             mu=ncb),
+            dia_model_record("dia_spmm banded GenEO deflation block "
+                             "(F G_def)", A_b, launches["b"][1], mu=nd)]
+    wall = time.perf_counter() - t
+    print(f"  phase 25 in all {wall:.1f} s")
+    return recs
+
+
+def phase_25a(device="cuda", launches=None):
+    """(a) the banded parity cell, tools/bench_feti.py's default
+    generate(64, 128, 128) with --local banded through the port's twin:
+    dense, mfree and cheby coarse modes; FETI (dirichlet, lumped, none)
+    and BDD against the JAX package's CPU counts ``FETI5B_JAX_ITS``
+    (dirichlet exactly, lumped and none within 1: C22; BDD in C21's
+    window, the JAX package's spread over start keys, which is 0);
+    solutions within 1e-6 of the direct solve."""
+    import scipy.sparse.linalg as spla
+    import torch
+    from hpddm_tpu_torch.device import synchronize
+    from hpddm_tpu_torch.examples import bench_feti
+    from hpddm_tpu_torch.models import nonoverlap
+    from hpddm_tpu_torch.precond.substructure import bdd_solve, feti_solve
+
+    args = bench_feti.parser().parse_args(["--device", device, "--local",
+                                           "banded", "--skip-bdd"])
+    gen = nonoverlap.generate(args.S, args.N, args.N)
+    x_direct = spla.spsolve(gen.A_global.tocsc(), gen.f_global)
+    dev = torch.device(device)
+    print(f"  (a) generate({args.S}, {args.N}, {args.N}), banded locals: "
+          f"{gen.A_global.shape[0]} unknowns, n_max {max(gen.n_loc)}")
+    reset_counts()                       # the path's counts from here
+    for mode in ("dense", "mfree", "cheby"):
+        out = bench_feti.run_mode(gen, mode, args, dev, np.float64,
+                                  log=lambda m: print("    " + m))
+        st, f = out["state"], out["f"]
+        t = time.perf_counter()
+        runs = {"feti dirichlet": out["feti"]["res"],
+                "bdd": bdd_solve(st, f, tol=args.tol, max_it=args.max_it)}
+        synchronize(dev)
+        print(f"    [{mode}] BDD solve {time.perf_counter() - t:.2f} s")
+        for p in ("lumped", "none"):
+            runs[f"feti {p}"] = feti_solve(st, f, tol=args.tol,
+                                           max_it=args.max_it, precond=p)
+        print(f"    [{mode}] A_loc {type(st.A_loc).__name__} "
+              f"{len(getattr(st.A_loc, 'offsets', ()))} diagonals; "
+              f"S_b^+ degree {st.sb_degree}, bounds [{st.sb_lo:.6g}, "
+              f"{st.sb_hi:.6g}]")
+        for name, res in runs.items():
+            want = FETI5B_JAX_ITS[f"a {mode} {name}"]
+            err = (np.linalg.norm(averaged(gen, res.u) - x_direct)
+                   / np.linalg.norm(x_direct))
+            slack = 1 if name in ("feti lumped", "feti none") else 0
+            print(f"    [{mode}] {name}: {res.iterations} iterations (JAX "
+                  f"package on the CPU {want}), rel. residual "
+                  f"{float(res.rel_res.max()):.3e}, against the direct "
+                  f"solve {err:.3e}")
+            check(abs(res.iterations - want) <= slack,
+                  f"(a) {mode} {name}: {res.iterations} iterations, the JAX "
+                  f"package's {want}")
+            check(err <= 1e-6, f"(a) {mode} {name}: {err:.3e} from the "
+                  "direct solve")
+        del out, st, f, runs
+    launches["a"] = dia_counts()           # read just after the path
+    print(f"    B1 launches {launches['a'][0]}, B2 {launches['a'][1]}")
+    if dev.type == "cuda":
+        check(launches["a"][0] > 0, "(a) no B1 launch on the banded path")
+
+
+def phase_25b(device="cuda", launches=None, args=(64, 256, 256)):
+    """(b) the GenEO cell generate(64, 256, 256, contrast=1e4,
+    checker=16) with banded locals and the cheby coarse mode, where no
+    solve converges in either package (C23): base FETI and, after
+    solve_gevp(nu=6, feti_deflation=True) through the Lanczos pencil,
+    deflated FETI, at a cap of 150 iterations; BDD base and enriched at a
+    cap of 5 (``FETI5B_CAPS``). Base FETI's and both BDD residuals within
+    a factor 2 of the JAX package's at the same caps (``FETI5B_JAX_RES``;
+    they depend on the Chebyshev bounds only, C21), the deflated FETI
+    residual below a tenth of base's (the JAX package's is 0.034 of it).
+    Returns (the local matrices, the deflation block's width)."""
+    import torch
+    from hpddm_tpu_torch.device import synchronize
+    from hpddm_tpu_torch.examples.bench_feti import rhs
+    from hpddm_tpu_torch.models import nonoverlap
+    from hpddm_tpu_torch.precond.substructure import bdd_solve, feti_solve
+
+    t = time.perf_counter()
+    gen = nonoverlap.generate(*args, contrast=1e4, checker=16)
+    t_gen = time.perf_counter() - t
+    reset_counts()                       # the path's counts from here
+    t = time.perf_counter()
+    sub = banded_substructure(gen, device, substructuring_coarse="cheby")
+    t_setup = time.perf_counter() - t
+    st = sub.state
+    f = torch.as_tensor(rhs(gen, sub.n_max, np.float64), device=device)
+    print(f"  (b) generate({', '.join(map(str, args))}, contrast=1e4, "
+          f"checker=16), banded locals, cheby coarse: "
+          f"{gen.A_global.shape[0]} unknowns, n_max {sub.n_max}, generated "
+          f"in {t_gen:.2f} s, setup {t_setup:.2f} s ("
+          + ", ".join(f"{k} {v:.3f}" for k, v in sub.timings.items())
+          + f"); S_b^+ degree {st.sb_degree} on [{st.sb_lo:.6g}, "
+          f"{st.sb_hi:.6g}], G^T G degree {st.coarse_degree}, W^T S W "
+          f"degree {st.bdd_coarse_degree}")
+    tol, caps = 1e-8, FETI5B_CAPS
+    runs = {}
+    t = time.perf_counter()
+    runs["feti"] = feti_solve(st, f, tol=tol, max_it=caps["feti"])
+    runs["bdd"] = bdd_solve(st, f, tol=tol, max_it=caps["bdd"])
+    synchronize(sub.device)
+    t_base = time.perf_counter() - t
+    t = time.perf_counter()
+    st = sub.solve_gevp(nu=6, feti_deflation=True)
+    synchronize(sub.device)
+    t_gevp = time.perf_counter() - t
+    nd = st.G_def.shape[1]
+    t = time.perf_counter()
+    runs["feti deflated"] = feti_solve(st, f, tol=tol, max_it=caps["feti"])
+    runs["bdd enriched"] = bdd_solve(st, f, tol=tol, max_it=caps["bdd"])
+    synchronize(sub.device)
+    t_enr = time.perf_counter() - t
+    launches["b"] = dia_counts()           # read just after the path
+    print(f"    solves before GenEO {t_base:.2f} s, solve_gevp(nu=6, "
+          f"feti_deflation=True) through the Lanczos pencil {t_gevp:.2f} s "
+          f"(deflation space {nd} columns, balancing ranks "
+          f"{int(st.sb_r_loc.min())}-{int(st.sb_r_loc.max())}, W^T S W "
+          f"degree {st.bdd_coarse_degree}), solves after {t_enr:.2f} s; "
+          f"B1 launches {launches['b'][0]}, B2 {launches['b'][1]}")
+    for name, res in runs.items():
+        rel = float(res.rel_res.max())
+        want = FETI5B_JAX_RES[f"b {name}"]
+        cap = caps[name.split()[0]]
+        print(f"    {name}: {res.iterations} iterations (cap {cap}), rel. "
+              f"residual {rel:.3e} (the JAX package on the CPU {want:.3e})")
+        check(res.iterations == cap and np.isfinite(rel),
+              f"(b) {name}: {res.iterations} iterations, residual {rel}")
+        if name != "feti deflated":
+            check(0.5 * want <= rel <= 2.0 * want,
+                  f"(b) {name}: residual {rel:.3e} at the cap, the JAX "
+                  f"package's {want:.3e}")
+    check(float(runs["feti deflated"].rel_res.max())
+          < 0.1 * float(runs["feti"].rel_res.max()),
+          "(b) deflated FETI's residual not below a tenth of base's")
+    if torch.device(device).type == "cuda":
+        check(min(launches["b"]) > 0, f"(b) B1/B2 launches {launches['b']}")
+    A = st.A_loc
+    del sub, st, runs, f
+    return A, nd
+
+
+def phase_25c(S=16, N=512, device="cuda", launches=None, reps=3):
+    """(c) the banded scale cell: 128^2 local boxes, whose dense local
+    factors would take 2.2 GB each, on 16 subdomains (262,144 unknowns;
+    generate(64, 1024, 1024), phase 24 (c)'s system on 64 such boxes,
+    cut to S=16 at N=512 for the smoke's time limit). Setup by phase and
+    its peak; FETI and BDD in the mfree and cheby coarse modes, FETI best
+    of ``reps`` with the same count in each, each BDD solve once (0.5-0.9
+    s an iteration, host-paced); true residuals; the device-busy share of
+    a one-iteration BDD solve; peak memory. Returns (the local matrices,
+    the mfree BDD coarse panel's width)."""
+    import torch
+    from hpddm_tpu_torch.device import synchronize
+    from hpddm_tpu_torch.examples.bench_feti import rhs
+    from hpddm_tpu_torch.models import nonoverlap
+    from hpddm_tpu_torch.precond import substructure as sb
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    t = time.perf_counter()
+    gen = nonoverlap.generate(S, N, N)
+    t_gen = time.perf_counter() - t
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()                       # the path's counts from here
+    t = time.perf_counter()
+    sub = banded_substructure(gen, dev, substructuring_coarse="mfree")
+    t_setup = time.perf_counter() - t
+    setup_peak = torch.cuda.max_memory_allocated() if cuda else 0
+    st = sub.state
+    n, nb, ni = st.n_max, st.bidx.shape[1], st.iidx.shape[1]
+    ncb = st.S_total * st.Sb_kernels.shape[2]
+    cut = (" (generate(64, 1024, 1024) cut to 16 subdomains of its "
+           "128^2 boxes)" if (S, N) == (16, 512) else "")
+    print(f"  (c) generate({S}, {N}, {N}){cut}, banded locals: "
+          f"{gen.A_global.shape[0]} unknowns, n_max {n}, nb_max {nb}, "
+          f"ni_max {ni}, {st.N_l} multipliers, nc {st.nc} floating; "
+          f"generated in {t_gen:.2f} s; setup {t_setup:.2f} s ("
+          + ", ".join(f"{k} {v:.3f}" for k, v in sub.timings.items())
+          + f"), setup peak {setup_peak / 2**30:.2f} GiB; factors: K + eps I "
+          f"{st.Kb.nbytes / 1e9:.2f} GB, K_ii {st.Kiib.nbytes / 1e9:.2f} GB;"
+          f" A_loc {type(st.A_loc).__name__} offsets {st.A_loc.offsets}; "
+          f"S_b^+ degree {st.sb_degree} on [{st.sb_lo:.6g}, "
+          f"{st.sb_hi:.6g}]; a dense local K would take "
+          f"{n * n * 8 / 1e9:.2f} GB a subdomain")
+    del sub
+    f = torch.as_tensor(rhs(gen, n, np.float64), device=dev)
+    t = time.perf_counter()
+    st_c = sb.with_coarse_mode(st, "cheby")
+    synchronize(dev)
+    print(f"    cheby coarse mode on the same factors "
+          f"{time.perf_counter() - t:.2f} s: G^T G degree "
+          f"{st_c.coarse_degree}, W^T S W degree {st_c.bdd_coarse_degree}")
+    tol, max_it = 1e-8, 500
+    xs, its = {}, {}
+    for mode, state in (("mfree", st), ("cheby", st_c)):
+        for name, solve in (("feti", sb.feti_solve), ("bdd", sb.bdd_solve)):
+            counts, times = [], []
+            n_runs = 1 if name == "bdd" else reps
+            for _ in range(n_runs):
+                t0 = time.perf_counter()
+                res = solve(state, f, tol=tol, max_it=max_it)
+                synchronize(dev)
+                times.append(time.perf_counter() - t0)
+                counts.append(res.iterations)
+            x = averaged(gen, res.u)
+            rel = true_rel(gen, x)
+            xs[mode, name], its[mode, name] = x, res.iterations
+            best = min(times)
+            print(f"    [{mode}] {name.upper()}: {res.iterations} iterations "
+                  f"in each of {len(counts)} solves, rel. residual "
+                  f"{float(res.rel_res.max()):.3e}, true rel. residual "
+                  f"{rel:.3e}; best of {n_runs} {best:.3f} s ("
+                  + ", ".join(f"{x_:.3f}" for x_ in times)
+                  + f"), {1e3 * best / max(res.iterations, 1):.2f} ms an "
+                  "iteration")
+            check(len(set(counts)) == 1,
+                  f"(c) {mode} {name}: counts differ across repeats {counts}")
+            check(float(res.rel_res.max()) <= tol and rel <= 1e-6,
+                  f"(c) {mode} {name}: residuals {float(res.rel_res.max())}"
+                  f", true {rel:.3e}")
+            del res
+    launches["c"] = dia_counts()           # read just after the path
+    for mode in ("mfree", "cheby"):
+        d = (np.linalg.norm(xs[mode, "feti"] - xs[mode, "bdd"])
+             / np.linalg.norm(xs[mode, "feti"]))
+        print(f"    [{mode}] FETI and BDD solutions differ by {d:.3e}")
+        check(d <= 1e-6, f"(c) {mode}: FETI and BDD differ by {d:.3e}")
+    print(f"    B1 launches {launches['c'][0]}, B2 {launches['c'][1]} "
+          f"(from setup to the last solve)")
+    if cuda:
+        check(min(launches["c"]) > 0, f"(c) B1/B2 launches {launches['c']}")
+        # one BDD iteration's operator work: S p, the Chebyshev S_b^+ of
+        # the preconditioner, and S of its result for the balancing
+        ub = sb._gather_b(st, f)
+        t = time.perf_counter()
+        wall_ms, busy_ms = device_busy_ms(lambda: sb.bdd_operator(
+            st, sb.bdd_precond(st, sb.bdd_operator(st, ub))),
+            cpu_ops=False, warmup=False)
+        t_prof = time.perf_counter() - t
+        print(f"    one BDD iteration's operator work (S, the Chebyshev "
+              f"S_b^+, S: 130 implicit S_b applies): {wall_ms:.1f} ms of "
+              "wall, device busy "
+              + ("not measured" if busy_ms is None else
+                 f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%)")
+              + f"; the profiled run and its post-processing "
+              f"{t_prof:.1f} s")
+        peak = torch.cuda.max_memory_allocated()
+        print(f"    peak device memory {peak / 2**30:.2f} GiB "
+              "(torch.cuda.max_memory_allocated, setup included)")
+        check(peak < 80e9, f"(c) peak {peak / 1e9:.1f} GB")
+    A = st.A_loc
+    del st, st_c, f
+    return A, ncb
+
+
+def phase_25d(device="cuda", nx=256):
+    """(d) slice 5f: LeastSquaresSolver on tests/test_leastsquares.py's
+    gradient problem at nx x nx (S=16, overlap 2), one level and GenEO
+    (balanced, coerced to additive, nu=8): both reach 1e-8 and the direct
+    solution within 1e-5, two-level below 0.7 of one-level; spsd_neumann
+    GenEO at tests/test_fromfile.py:149's configuration; each new twin
+    once, on matrix files written here."""
+    import tempfile
+
+    import scipy.io
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+    from hpddm_tpu_torch.examples import (custom_operator, iterative,
+                                          least_squares, schwarz_from_file,
+                                          solver)
+    from hpddm_tpu_torch.options import Options
+    from hpddm_tpu_torch.solvers.leastsquares import LeastSquaresSolver
+
+    A, b = least_squares.gradient_problem(nx, delta=1e-4, seed=1)
+    x_ref = spla.spsolve(sp.csr_matrix(A.T @ A).tocsc(), A.T @ b)
+    its = {}
+    print(f"  (d) least squares: gradient problem {nx}x{nx} "
+          f"({A.shape[0]} x {A.shape[1]}), S=16, overlap 2")
+    reset_counts()                       # the path's counts from here
+    for name, opt in (("one level", Options()),
+                      ("GenEO", Options(schwarz_coarse_correction="balanced",
+                                        geneo_nu=8))):
+        t = time.perf_counter()
+        ls = LeastSquaresSolver(A, n_subdomains=16, overlap=2, options=opt,
+                                device=device)
+        t_setup = time.perf_counter() - t
+        t = time.perf_counter()
+        res = ls.solve(b, tol=1e-8, max_it=1000)
+        t_solve = time.perf_counter() - t
+        err = np.linalg.norm(res.x - x_ref) / np.linalg.norm(x_ref)
+        its[name] = res.iterations
+        print(f"    [{name}] {type(ls.state.A).__name__} local matrices, "
+              f"setup {t_setup:.2f} s, CGLS {res.iterations} iterations in "
+              f"{t_solve:.2f} s, ||A^T r||/||A^T b|| {res.rel_res:.3e}, "
+              f"against the direct solution {err:.3e}")
+        check(res.rel_res <= 1e-8 and err <= 1e-5,
+              f"(d) {name}: residual {res.rel_res:.3e}, error {err:.3e}")
+        del ls
+    print(f"    kernel launches on the least-squares path: B1/B2 "
+          f"{dia_counts()}, B4/B5 {ell_counts()}")
+    check(its["GenEO"] < 0.7 * its["one level"],
+          f"(d) GenEO {its['GenEO']} iterations, one level "
+          f"{its['one level']}")
+    phase_25d_spsd(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        from hpddm_tpu_torch.models import diffusion2d
+        mat = os.path.join(tmp, "diffusion.txt")
+        diffusion2d.generate(1, 50, 50).mats[0].dump(mat)
+        rect = os.path.join(tmp, "gradient.mtx")
+        scipy.io.mmwrite(rect, least_squares.gradient_problem(32)[0])
+        dev = ["-device", device]
+        for drv, argv in (
+                (iterative, ["-matrix_filename", mat]),
+                (solver, ["-matrix_filename", mat]),
+                (custom_operator, ["-n", "100", "-mu", "2", "-S", "4"]),
+                (schwarz_from_file, ["-matrix_filename", mat, "-N", "4",
+                                     "-overlap", "2",
+                                     "-hpddm_schwarz_coarse_correction",
+                                     "deflated", "-hpddm_geneo_nu", "6"]),
+                (least_squares, ["-matrix_filename", rect, "-N", "8"])):
+            name = drv.__name__.rsplit(".", 1)[1]
+            t = time.perf_counter()
+            rc = drv.main(argv + dev)
+            print(f"    twin {name} exit {rc} in "
+                  f"{time.perf_counter() - t:.2f} s")
+            check(rc == 0, f"(d) twin {name} exited {rc}")
+
+
+def phase_25d_spsd(device):
+    """spsd_neumann at tests/test_fromfile.py:149's configuration (a 60x60
+    5-point matrix, S=8, overlap 2): the prolongated sum is the matrix,
+    and GenEO on the splitting (nu=8, deflated) cuts GMRES's count to at
+    most 16."""
+    import scipy.sparse as sp
+    import torch
+    from hpddm_tpu_torch.core.csr import MatrixCSR
+    from hpddm_tpu_torch.models import diffusion2d, fromfile
+    from hpddm_tpu_torch.options import Options
+    from hpddm_tpu_torch.precond.schwarz import Schwarz
+    from hpddm_tpu_torch.solvers.krylov import solve
+
+    K = diffusion2d.generate(1, 60, 60, overlap=0).mats[0].scipy(expand=True)
+    S = 8
+    gen = fromfile.decompose(MatrixCSR(sp.csr_matrix(K)), S, overlap=2)
+    neu = fromfile.spsd_neumann(gen)
+    acc = sp.csr_matrix(K.shape)
+    for s, g in enumerate(gen.gids):
+        R = sp.csr_matrix((np.ones(len(g)), (np.arange(len(g)), g)),
+                          shape=(len(g), K.shape[0]))
+        acc = acc + R.T @ neu[s].scipy(expand=True) @ R
+    Ksym = (K + K.T) * 0.5
+    gap = abs(acc - Ksym).max() / abs(Ksym).max()
+    its = {}
+    for cc in (None, "deflated"):
+        opt = Options(tol=1e-8, **({} if cc is None else dict(
+            schwarz_coarse_correction=cc, geneo_nu=8)))
+        sch = Schwarz(gen.mats, gen.neighbors, gen.mappings, d=gen.d,
+                      options=opt, device=device)
+        if cc:
+            sch.solve_gevp(neu)
+        f = np.zeros((S, sch.n_max, 1))
+        for s in range(S):
+            f[s, : gen.n_loc[s]] = gen.f[s]
+        its[cc] = solve(sch.build(), torch.as_tensor(f, device=device),
+                        opt=opt).iterations
+    print(f"    spsd_neumann (60x60, S=8, overlap 2): prolongated sum within "
+          f"{gap:.1e} of the matrix; GMRES one level {its[None]}, GenEO on "
+          f"the splitting {its['deflated']} iterations")
+    check(gap < 1e-10 and its["deflated"] < its[None]
+          and its["deflated"] <= 16, f"(d) spsd_neumann: {gap}, {its}")
+
+
 def main():
     import torch
 
@@ -3967,9 +4459,11 @@ def main():
     lap("phase 23")
     phase_slice_5e()
     lap("phase 24")
+    slice5eb = phase_slice_5eb()
+    lap("phase 25")
 
     kernels = {"kernels": [dia, *spmm, *unstr, *banded, *canvas, *models,
-                           *slice5a, *slice5d]}
+                           *slice5a, *slice5d, *slice5eb]}
     wall = time.perf_counter() - t_start
     print(f"wall {wall:.1f} s")
     check(wall < 1100, f"the smoke took {wall:.1f} s (limit 1100)")

@@ -6,13 +6,16 @@ matrix-free mode avoids (the dense BDD balancing basis W is S x nb x S*r,
 quadratic in the subdomain count; the dense FETI G is N_l x nc).
 
     python -m hpddm_tpu_torch.examples.bench_feti --S 64 --N 128 \\
-        [--modes dense,mfree] [--device cuda|cpu]
+        [--modes dense,mfree,cheby] [--local dense|banded] \\
+        [--device cuda|cpu]
 
-In float64 (the JAX twin's CPU precision). Prints, per mode, the build time with its setup phases, nc and ncb, the G
-and W bytes avoided (mfree), the FETI and BDD iterations, relative
-residual, solve time and first solve time, and the peak device memory (on
-the card). The Chebyshev coarse mode and the banded local mode belong to
-slice 5e(i)b and raise ``NotImplementedError``.
+In float64 (the JAX twin's CPU precision). Prints, per coarse mode, the
+build time with its setup phases, nc and ncb, the G and W bytes avoided
+(mfree, cheby), the Chebyshev degrees (cheby), the FETI and BDD
+iterations, relative residual, solve time and first solve time, and the
+peak device memory (on the card). ``--local banded`` builds banded local
+factors from the generator's grid shapes, slot maps and kernels (no dense
+local block: the mode for local boxes whose dense factors do not fit).
 """
 
 from __future__ import annotations
@@ -53,11 +56,15 @@ def run_mode(gen, mode: str, args, device, dtype, log=print) -> dict:
 
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
+    kw = {}
+    if args.local == "banded":
+        kw = dict(kernels=gen.kernels, grid_shapes=gen.grid_shapes,
+                  slot_maps=gen.slot_maps)
     sub, t_build = timed(lambda: Substructure(
         gen.mats, gen.neighbors, gen.mappings,
         options=Options(substructuring_coarse=mode,
                         substructuring_local=args.local),
-        device=device), device)
+        device=device, **kw), device)
     st = sub.state
     S = len(gen.mats)
     nb_max = st.bidx.shape[1]
@@ -67,6 +74,11 @@ def run_mode(gen, mode: str, args, device, dtype, log=print) -> dict:
     if mode != "dense":
         extra = (f" avoided: G {st.N_l * st.nc * itemsize / 1e6:.1f} MB, "
                  f"W {S * nb_max * ncb * itemsize / 1e6:.1f} MB")
+    if st.coarse_mode == "cheby":
+        extra += (f" cheb_deg(G^TG)={st.coarse_degree}"
+                  f" cheb_deg(W^TSW)={st.bdd_coarse_degree}")
+    if st.local_mode == "banded":
+        extra += f" cheb_deg(S_b^+)={st.sb_degree}"
     log(f"[{mode}] build {t_build:.2f}s nc={st.nc} ncb={ncb}{extra}")
     log(f"[{mode}] setup phases: " + ", ".join(
         f"{k} {v:.3f}s" for k, v in sub.timings.items()))
@@ -100,7 +112,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--contrast", type=float, default=1.0)
     ap.add_argument("--tol", type=float, default=1e-8)
     ap.add_argument("--max-it", type=int, default=500)
-    ap.add_argument("--modes", default="dense,mfree")
+    ap.add_argument("--modes", default="dense,mfree,cheby")
     ap.add_argument("--local", default="dense", choices=("dense", "banded"))
     ap.add_argument("--skip-bdd", action="store_true")
     ap.add_argument("--device", default=DEFAULT)

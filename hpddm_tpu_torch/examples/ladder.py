@@ -106,6 +106,7 @@ def run(prob, dtype, device="cuda", reps=2):
     solve_s, res = timed_solve(state, f, sch.opt, reps=reps)
     co = state.coarse
     out = dict(dtype=np.dtype(dtype).name, iterations=int(res.iterations),
+               reps=reps,
                setup_s=setup_s, phases=dict(decomposition=t_dec,
                                             **sch.timings),
                solve_s=solve_s, n_max=sch.n_max, coarse=co.N_c,
@@ -140,7 +141,8 @@ def report(r):
     print(f"  {r['dtype']}: {r['iterations']} outer iterations (n_max "
           f"{r['n_max']}, coarse size {r['coarse']}, mode {r['mode']}, "
           f"level 3 {r['lvl3']}, level-2 tol {r['inner_tol']:g}), solve "
-          f"{r['solve_s']:.4f} s (best of 2 after a warm-up), true rel. "
+          f"{r['solve_s']:.4f} s (best of {r['reps']} after a warm-up), "
+          "true rel. "
           f"residual of the solve {r['solve_relres']:.3e}")
     print(f"    nested level-2 CG: {r['coarse_solves']} coarse solves a "
           f"solve, inner iterations per coarse solve mean "

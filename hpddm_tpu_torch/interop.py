@@ -50,11 +50,14 @@ Keys of ``arrays`` (numpy arrays unless stated):
 * ``variant`` (str) and ``bc`` (array or None).
 
 ``substructure_state_from_numpy`` does the same for a ``hpddm_tpu``
-``SubstructureState`` (FETI/BDD, its dense and mfree coarse modes), with
-its interface decomposition ``dec_b`` given by the decomposition keys
-above (``decomposition_from_numpy``), so that the port's FETI and BDD
-runtimes run on the JAX package's factors, independently of how each
-package's eigh picks its kernel bases.
+``SubstructureState`` (FETI/BDD in every local and coarse mode), with its
+interface decomposition ``dec_b`` given by the decomposition keys above
+(``decomposition_from_numpy``), its banded factors by the keys of
+``banded_solver_from_numpy`` and its packed local matrices by the layout
+keys above, so that the port's FETI and BDD runtimes run on the JAX
+package's factors and Chebyshev bounds, independently of how each
+package's eigh picks its kernel bases and of the start vectors of its
+bounds.
 """
 
 from __future__ import annotations
@@ -151,13 +154,7 @@ def state_from_numpy(arrays: Dict[str, Any], device=DEFAULT,
             nu_max=int(arrays["nu_max"]), correction=str(arrays["correction"]),
             **extra)
     if arrays.get("Dinv") is not None:
-        solver = BandedSolver(
-            Dinv=kept("Dinv"), cl=kept("cl"), cu=kept("cu"),
-            idx_fwd=i("idx_fwd"), msk_fwd=kept("msk_fwd"),
-            idx_inv=i("idx_inv"), msk_inv=kept("msk_inv"),
-            wy_max=int(arrays["wy_max"]), wx_max=int(arrays["wx_max"]),
-            n_max=int(arrays["n_max"]), S=int(arrays["S"]),
-            cw=int(arrays["cw"]))
+        solver = banded_solver_from_numpy(arrays, device, dtype)
     elif arrays.get("dst") is not None:
         solver = dst_solver_from_numpy(arrays["dst"], device, dtype)
     elif arrays.get("cheby") is not None:
@@ -177,6 +174,32 @@ def state_from_numpy(arrays: Dict[str, Any], device=DEFAULT,
     return SchwarzState(
         dec=dec, A=A, solver=solver, coarse=coarse,
         variant=str(arrays["variant"]), bc=None if bc is None else f("bc"))
+
+
+def banded_solver_from_numpy(d: Dict[str, Any], device=DEFAULT,
+                             dtype=torch.float64) -> BandedSolver:
+    """The port's ``BandedSolver`` from the arrays of the JAX package's:
+    ``Dinv``, ``cl``, ``cu``, ``idx_fwd``, ``msk_fwd``, ``idx_inv``,
+    ``msk_inv`` and ints ``wy_max``, ``wx_max``, ``n_max``, ``S``, ``cw``.
+    Factors held in a lower precision than dtype keep it; indices are
+    int64."""
+    device = as_device(device)
+    dtype = as_torch_dtype(dtype)
+
+    def kept(key):
+        low = as_torch_dtype(np.asarray(d[key]).dtype)
+        return torch.as_tensor(np.array(d[key]), device=device).to(
+            low if low.itemsize < dtype.itemsize else dtype)
+
+    def i(key):
+        return torch.as_tensor(np.array(d[key]), device=device).to(
+            torch.int64)
+    return BandedSolver(
+        Dinv=kept("Dinv"), cl=kept("cl"), cu=kept("cu"),
+        idx_fwd=i("idx_fwd"), msk_fwd=kept("msk_fwd"),
+        idx_inv=i("idx_inv"), msk_inv=kept("msk_inv"),
+        wy_max=int(d["wy_max"]), wx_max=int(d["wx_max"]),
+        n_max=int(d["n_max"]), S=int(d["S"]), cw=int(d["cw"]))
 
 
 def decomposition_from_numpy(arrays: Dict[str, Any], device,
@@ -212,6 +235,10 @@ SUB_INDEX = ("r_loc", "sb_r_loc", "bidx", "iidx", "lam_id", "lam_loc",
              "kern_off", "sub_gid")
 SUB_MASK = ("b_mask", "i_mask")
 SUB_OPTIONAL = ("G", "GtG_inv", "G_def", "FG_def", "GFG_inv")
+# the Chebyshev bounds (floats, optional) and the degrees and refinements
+# (ints, 0 or the default where absent) of the cheby and banded modes
+SUB_BOUNDS = ("gtg_lo", "gtg_hi", "wsw_lo", "wsw_hi", "sb_lo", "sb_hi")
+SUB_COUNTS = ("coarse_degree", "bdd_coarse_degree", "sb_degree", "k_refine")
 
 
 def substructure_state_from_numpy(arrays: Dict[str, Any], device=DEFAULT,
@@ -219,19 +246,26 @@ def substructure_state_from_numpy(arrays: Dict[str, Any], device=DEFAULT,
     """A port ``SubstructureState`` from the arrays of a JAX package
     ``SubstructureState`` flattened to numpy: the fields of ``SUB_FLOAT``,
     ``SUB_INDEX``, ``SUB_MASK`` and (each optional, None where absent)
-    ``SUB_OPTIONAL``; ints ``N_l``, ``nc``, ``n_max``, ``S_total``; str
-    ``coarse_mode`` (``dense`` or ``mfree``); and ``dec_b``, a dict of the
-    interface decomposition's keys as ``state_from_numpy`` takes them. The
-    gather lists of B and B^T are derived from the slot arrays, so the
-    port's runtime runs on the JAX package's factors."""
-    from hpddm_tpu_torch.precond.substructure import (SLICE_B,
-                                                      SubstructureState,
+    ``SUB_OPTIONAL``; ints ``N_l``, ``nc``, ``n_max``, ``S_total``; strs
+    ``coarse_mode`` (``dense``, ``mfree`` or ``cheby``) and ``local_mode``
+    (``dense`` or ``banded``; dense where absent); the floats of
+    ``SUB_BOUNDS`` and ints of ``SUB_COUNTS`` where the modes set them;
+    in the banded mode ``Kb`` and ``Kiib`` (dicts for
+    ``banded_solver_from_numpy``) and ``A_loc`` (a dict of the local
+    matrices' layout keys as ``state_from_numpy`` takes them); and
+    ``dec_b``, a dict of the interface decomposition's keys. The gather
+    lists of B and B^T are derived from the slot arrays, so the port's
+    runtime runs on the JAX package's factors."""
+    from hpddm_tpu_torch.precond.substructure import (SubstructureState,
                                                       plan_of)
     device = as_device(device)
     dtype = as_torch_dtype(dtype)
     mode = str(arrays.get("coarse_mode", "dense"))
-    if mode not in ("dense", "mfree"):
-        raise NotImplementedError(f"substructuring_coarse={mode}: {SLICE_B}")
+    local = str(arrays.get("local_mode", "dense"))
+    if mode not in ("dense", "mfree", "cheby") or \
+            local not in ("dense", "banded"):
+        raise ValueError(f"unknown substructuring modes: coarse {mode!r}, "
+                         f"local {local!r}")
 
     def t(a, dt):
         return torch.as_tensor(np.array(a), device=device).to(dt)
@@ -249,8 +283,16 @@ def substructure_state_from_numpy(arrays: Dict[str, Any], device=DEFAULT,
                    ints["nc"], ints["n_max"], device)
     dec_b = decomposition_from_numpy(arrays["dec_b"], device,
                                      underlying(dtype))
+    fields.update({k: float(arrays[k]) for k in SUB_BOUNDS
+                   if arrays.get(k) is not None})
+    fields.update({k: int(arrays[k]) for k in SUB_COUNTS if k in arrays})
+    if local == "banded":
+        fields.update(
+            Kb=banded_solver_from_numpy(arrays["Kb"], device, dtype),
+            Kiib=banded_solver_from_numpy(arrays["Kiib"], device, dtype),
+            A_loc=_matrix(arrays["A_loc"], ints["n_max"], device, dtype))
     return SubstructureState(dec_b=dec_b, plan=plan, coarse_mode=mode,
-                             **fields, **ints)
+                             local_mode=local, **fields, **ints)
 
 
 def _matrix(arrays: Dict[str, Any], n_max: int, device, dtype):

@@ -10,9 +10,8 @@ reverse Cuthill-McKee local numbering (``rcm_localize``).
 
 Returns the same structures as models/diffusion2d.generate: local matrices,
 neighbor lists with elementwise-aligned mappings (sorted by global id on
-both sides), and the partition of unity. ``spsd_neumann`` (the algebraic
-SPSD splitting for GenEO without user Neumann matrices) belongs to a later
-slice and raises.
+both sides), and the partition of unity. ``spsd_neumann`` is the
+algebraic SPSD splitting for GenEO without user Neumann matrices.
 """
 
 from __future__ import annotations
@@ -309,9 +308,68 @@ def decompose(A: MatrixCSR, n_subdomains: int, overlap: int = 1,
 
 
 def spsd_neumann(gen: FromFileGenerated) -> List[MatrixCSR]:
-    """Algebraic SPSD splitting of an assembled matrix into local
-    Neumann-analogue matrices for GenEO (``hpddm_tpu/models/fromfile.py``
-    ``spsd_neumann``). Not ported yet."""
-    raise NotImplementedError(
-        "spsd_neumann is not ported to hpddm_tpu_torch yet (ROADMAP queue "
-        "A, slice 5f: the matrix-file front end)")
+    """Algebraic SPSD splitting of an assembled symmetric matrix: local
+    Neumann-analogue matrices for GenEO with no user auxiliary matrices.
+
+    This is the fully-algebraic front-end the reference gets through
+    PCHPDDM + aldaas2021robust: write K = sum_s R_s^T Ntilde_s R_s with
+    every Ntilde_s SPSD, by splitting each off-diagonal edge (i, j) into
+    the PSD block [[|a|, a], [a, |a|]] shared 1/mult_e between the
+    subdomains containing both endpoints, and distributing each row's
+    nonnegative diagonal remainder a_ii - sum_j |a_ij| by vertex
+    multiplicity.  Exact (prolongated sums reproduce K) whenever K is
+    weakly diagonally dominant; otherwise the remainder is clamped at 0
+    (still SPSD, loudly warned).  Companion of the A^T A splitting in
+    solvers/leastsquares.py (rectangular case)."""
+    A = sp.csr_matrix(gen.A_global)
+    A = sp.csr_matrix((A + A.T) * 0.5)
+    N = A.shape[0]
+    S = len(gen.gids)
+    member = np.zeros((S, N), dtype=bool)
+    for s in range(S):
+        member[s, gen.gids[s]] = True
+    coo = A.tocoo()
+    off = coo.row != coo.col
+    ei, ej, ev = coo.row[off], coo.col[off], coo.data[off]
+    upper = ei < ej
+    ei, ej, ev = ei[upper], ej[upper], ev[upper]
+    # edge multiplicity: subdomains containing both endpoints
+    both = member[:, ei] & member[:, ej]               # (S, E)
+    mult_e = np.maximum(both.sum(axis=0), 1)
+    lost = int((both.sum(axis=0) == 0).sum())
+    # diagonal remainder
+    absA = A.copy()
+    absA.data = np.abs(absA.data)
+    offsum = np.asarray(absA.sum(axis=1)).ravel() - np.abs(A.diagonal())
+    rem = A.diagonal() - offsum
+    clamped = int((rem < -1e-12 * np.abs(A.diagonal() + 1e-300)).sum())
+    if lost or clamped:
+        import warnings
+        warnings.warn(
+            f"spsd_neumann: {lost} edge(s) contained in no subdomain, "
+            f"{clamped} row(s) with negative diagonal remainder clamped "
+            "— the splitting no longer sums exactly to K (increase the "
+            "overlap / matrix is far from diagonally dominant)",
+            stacklevel=2)
+    rem = np.maximum(rem, 0.0)
+    mult_v = np.maximum(member.sum(axis=0), 1)
+
+    out = []
+    for s in range(S):
+        g = gen.gids[s]
+        l_of = np.full(N, -1, dtype=np.int64)
+        l_of[g] = np.arange(len(g))
+        sel = both[s]
+        i_l, j_l = l_of[ei[sel]], l_of[ej[sel]]
+        w = ev[sel] / mult_e[sel]
+        aw = np.abs(ev[sel]) / mult_e[sel]
+        d_l = l_of[g]
+        rows = np.concatenate([i_l, j_l, i_l, j_l, d_l])
+        cols = np.concatenate([j_l, i_l, i_l, j_l, d_l])
+        vals = np.concatenate([w, w, aw, aw,
+                               rem[g] / mult_v[g]])
+        Nt = sp.csr_matrix((vals, (rows, cols)),
+                           shape=(len(g), len(g)))
+        Nt.sum_duplicates()
+        out.append(MatrixCSR(Nt))
+    return out

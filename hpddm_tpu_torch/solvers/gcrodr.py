@@ -12,7 +12,9 @@ include/HPDDM_GCRODR.hpp).
   (HPDDM_iterative.hpp:337-393).
 * ``bgcrodr_fused`` is the block method (HPDDM_GCRODR.hpp:446-907): one
   block Krylov space over all right-hand sides, deflated restarting by
-  block harmonic Ritz vectors.
+  block harmonic Ritz vectors; ``bgcrodr`` solves the columns one after
+  another through ``gcrodr`` on one shared recycled space (not
+  dispatched by ``solve``).
 * At the end of the first full cycle, harmonic Ritz vectors of the
   Hessenberg seed U (HPDDM_GCRODR.hpp:676-707); later cycles solve the
   Parks et al. generalized problem G^H G p = theta G^H (Q^H W) p
@@ -315,6 +317,43 @@ def bgcrodr_fused(op: LinearOperator, b: torch.Tensor,
         rel_res=torch.as_tensor(rel, dtype=rdtype, device=b.device),
         converged=torch.as_tensor(first_it > 0, device=b.device),
         recycled=RecycledSpace(U=U, C=C) if (k and U is not None) else None)
+
+
+def bgcrodr(op: LinearOperator, b: torch.Tensor,
+            x0: Optional[torch.Tensor] = None, tol: float = 1.0e-6,
+            restart: int = 40, max_it: int = 100, variant: str = "right",
+            recycle: int = 0, target: str = "SM",
+            recycled: Optional[RecycledSpace] = None,
+            same_system: bool = False, strategy: str = "A") -> GCRODRResult:
+    """Sequential multi-RHS GCRO-DR (``hpddm_tpu/solvers/gcrodr.py:360``):
+    the columns solved one after another by ``gcrodr``, sharing and
+    refining one recycled space, so that later columns start warm (each
+    after the first as the same system). ``solve`` does not dispatch here:
+    ``-hpddm_krylov_method bgcrodr`` with mu > 1 runs ``bgcrodr_fused``,
+    and ``gcrodr`` with mu > 1 is pseudo-block; this entry point is for
+    solving columns in sequence where the warm deflation across them is
+    the goal."""
+    S, n, mu = b.shape
+    kw = dict(tol=tol, restart=restart, max_it=max_it, variant=variant,
+              recycle=recycle, target=target, strategy=strategy)
+    if mu == 1:
+        return gcrodr(op, b, x0, recycled=recycled, same_system=same_system,
+                      **kw)
+    xs, its, rels, convs = [], [], [], []
+    rec = recycled
+    for j in range(mu):
+        xj = x0[:, :, j: j + 1] if x0 is not None else None
+        res = gcrodr(op, b[:, :, j: j + 1], xj, recycled=rec,
+                     same_system=same_system or j > 0, **kw)
+        rec = res.recycled if res.recycled is not None else rec
+        xs.append(res.x)
+        its.append(int(res.iterations))
+        rels.append(res.rel_res)
+        convs.append(res.converged)
+    return GCRODRResult(x=torch.cat(xs, dim=2), iterations=max(its),
+                        it_per_rhs=torch.as_tensor(its, device=b.device),
+                        rel_res=torch.cat(rels), converged=torch.cat(convs),
+                        recycled=rec)
 
 
 def gcrodr(op: LinearOperator, b: torch.Tensor,

@@ -18,6 +18,10 @@ b moves the JAX package's own solution by 1e-8 to 4e-7 and its counts by
 up to 5 iterations. There the two packages' rounding differences decide
 the counts, so recycle 1 is used; at recycle 1 (and for strategy A at
 recycle 3) the same change moves the solution by less than 1e-14.
+
+The sequential ``bgcrodr`` (columns in turn on one recycled space, not
+dispatched by ``solve``) is held to the JAX package's at
+``tests/test_block_gcrodr.py``'s case.
 """
 
 import numpy as np
@@ -72,3 +76,43 @@ def test_recycled_sequence(ras, method, f, recycle, opts):
     if opts.get("recycle_strategy") != "B":
         assert second < first        # the recycled space pays off
 
+
+
+def test_sequential_bgcrodr():
+    """The sequential multi-RHS ``bgcrodr`` (``hpddm_tpu/solvers/
+    gcrodr.py:360``) at ``tests/test_block_gcrodr.py:126``'s case: the 1D
+    Laplacian (n=100), three right-hand sides solved in turn on one
+    recycled space (restart 15, recycle 7, tol 1e-8): the JAX package's
+    counts per right-hand side (its solve run op by op), later columns
+    warm, solutions within 1e-10 relative of the JAX package's."""
+    import jax
+    import jax.numpy as jnp
+    import scipy.sparse as sp
+    from hpddm_tpu.solvers.base import LinearOperator as JaxOperator
+    from hpddm_tpu.solvers.gcrodr import bgcrodr as jax_bgcrodr
+
+    from hpddm_tpu_torch.solvers.base import LinearOperator
+    from hpddm_tpu_torch.solvers.gcrodr import bgcrodr
+
+    n = 100
+    A = sp.diags([-np.ones(n - 1), 2.0 * np.ones(n), -np.ones(n - 1)],
+                 [-1, 0, 1]).toarray()
+    b = np.random.default_rng(9).normal(size=(1, n, 3))
+    kw = dict(tol=1e-8, restart=15, max_it=2000, recycle=7)
+    Aj, At = jnp.asarray(A), torch.as_tensor(A)
+    with jax.disable_jit():
+        jres = jax_bgcrodr(JaxOperator(
+            gmv=lambda x: jnp.einsum("nk,skm->snm", Aj, x)),
+            jnp.asarray(b), **kw)
+    res = bgcrodr(LinearOperator(
+        gmv=lambda x: torch.einsum("nk,skm->snm", At, x)),
+        torch.as_tensor(b), **kw)
+    its = res.it_per_rhs.tolist()
+    assert its == np.asarray(jres.it_per_rhs).tolist()
+    assert its[1] < its[0] and its[2] < its[0]
+    assert res.iterations == max(its) and bool(res.converged.all())
+    x, jx = res.x.numpy(), np.asarray(jres.x)
+    assert np.abs(x - jx).max() <= 1e-10 * np.abs(jx).max()
+    for j in range(3):
+        r = b[0, :, j] - A @ x[0, :, j]
+        assert np.linalg.norm(r) <= 1e-7 * np.linalg.norm(b[0, :, j])

@@ -23,8 +23,9 @@ sizes, tolerances and iteration caps:
   the JAX package's eigenpairs takes its counts exactly, on its own
   eigenpairs it meets the JAX test's assertions (deflated below base,
   enriched not above, solutions exact);
-* the Chebyshev coarse mode and the banded local mode raise
-  ``NotImplementedError`` naming slice 5e(i)b; complex matrices raise
+* the Chebyshev coarse mode and the banded local mode build, and interop
+  carries the cheby state (their parity is
+  ``tests/test_torch_substructure_banded.py``); complex matrices raise
   ``TypeError`` naming C19.
 
 The ``-m slow`` case recomputes with the JAX package the counts that the
@@ -123,7 +124,24 @@ def jax_state_arrays(st):
     out.update({k: None if getattr(st, k) is None
                 else np.asarray(getattr(st, k)) for k in interop.SUB_OPTIONAL})
     out.update(N_l=st.N_l, nc=st.nc, n_max=st.n_max, S_total=st.S_total,
-               coarse_mode=st.coarse_mode)
+               coarse_mode=st.coarse_mode, local_mode=st.local_mode)
+    out.update({k: None if getattr(st, k) is None else float(getattr(st, k))
+                for k in interop.SUB_BOUNDS})
+    out.update({k: int(getattr(st, k)) for k in interop.SUB_COUNTS})
+    if st.local_mode == "banded":
+        for k in ("Kb", "Kiib"):
+            sol = getattr(st, k)
+            out[k] = {f: np.asarray(getattr(sol, f)) for f in (
+                "Dinv", "cl", "cu", "idx_fwd", "msk_fwd", "idx_inv",
+                "msk_inv")}
+            out[k].update({f: int(getattr(sol, f)) for f in (
+                "wy_max", "wx_max", "n_max", "S", "cw")})
+        A = st.A_loc
+        out["A_loc"] = ({"A_values": np.asarray(A.values),
+                         "A_offsets": tuple(A.offsets)}
+                        if hasattr(A, "offsets") else
+                        {"A_values": np.asarray(A.values),
+                         "A_cols": np.asarray(A.cols)})
     dec = st.dec_b
     d = {k: np.asarray(getattr(dec, k)) for k in (
         "n_loc", "d", "if_idx", "if_gid", "if_mask", "ov_mask", "mult",
@@ -376,19 +394,38 @@ def test_b_and_bt_are_adjoint(case):
 
 
 def test_unported_modes_raise(case):
-    c = case((4, 12, 12))
+    """The Chebyshev coarse mode and the banded local mode build (the
+    banded one from the generator's grid shapes, slot maps and kernels),
+    with_coarse_mode switches a state to cheby, and interop carries the
+    cheby state; complex matrices still raise ``TypeError`` (C19)."""
+    c = case((9, 12, 12))
     g = c.gen
-    for opts in (dict(substructuring_coarse="cheby"),
-                 dict(substructuring_local="banded")):
-        with pytest.raises(NotImplementedError, match=r"5e\(i\)b"):
-            sub.Substructure(g.mats, g.neighbors, g.mappings,
-                             options=Options(**opts), device="cpu")
-    with pytest.raises(NotImplementedError, match=r"5e\(i\)b"):
-        sub.with_coarse_mode(c.sub.state, "cheby")
-    arrays = jax_state_arrays(c.jsub.state)
-    arrays["coarse_mode"] = "cheby"
-    with pytest.raises(NotImplementedError, match=r"5e\(i\)b"):
-        interop.substructure_state_from_numpy(arrays, device="cpu")
+    cheby = sub.Substructure(g.mats, g.neighbors, g.mappings,
+                             options=Options(substructuring_coarse="cheby"),
+                             device="cpu").state
+    assert cheby.coarse_mode == "cheby" and cheby.GtG_inv is None
+    assert cheby.coarse_degree >= 8 and cheby.gtg_lo < cheby.gtg_hi
+    banded = sub.Substructure(
+        g.mats, g.neighbors, g.mappings,
+        options=Options(substructuring_local="banded"), kernels=g.kernels,
+        grid_shapes=g.grid_shapes, slot_maps=g.slot_maps,
+        device="cpu").state
+    assert banded.local_mode == "banded" and banded.sb_degree >= 8
+    assert np.array_equal(banded.r_loc.numpy(), c.sub.state.r_loc.numpy())
+    switched = sub.with_coarse_mode(c.sub.state, "cheby")
+    assert (switched.gtg_lo, switched.gtg_hi, switched.wsw_hi) == \
+        (cheby.gtg_lo, cheby.gtg_hi, cheby.wsw_hi)
+    jst = jax_sub.Substructure(
+        c.jgen.mats, c.jgen.neighbors, c.jgen.mappings,
+        options=JaxOptions(substructuring_coarse="cheby")).state
+    carried = interop.substructure_state_from_numpy(jax_state_arrays(jst),
+                                                    device="cpu")
+    assert carried.coarse_mode == "cheby" and carried.G is None
+    assert (carried.gtg_lo, carried.coarse_degree) == \
+        (float(jst.gtg_lo), jst.coarse_degree)
+    X = np.random.default_rng(7).normal(size=(jst.N_l, 2))
+    assert _rel(jax_sub.feti_project(jst, jnp.asarray(X)),
+                sub.feti_project(carried, torch.as_tensor(X))) < 1e-12
     cmats = [MatrixCSR(m.scipy().astype(np.complex128)) for m in g.mats]
     with pytest.raises(TypeError, match="C19"):
         sub.Substructure(cmats, g.neighbors, g.mappings, device="cpu")

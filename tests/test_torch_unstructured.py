@@ -20,6 +20,8 @@ local matrices, two-level GenEO-RAS (nu=8, deflated) and right GMRES.
   package's setup (x at rtol 1e-10: identical operators).
 """
 
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -358,14 +360,32 @@ def test_entry_points_default_to_cuda(gens, monkeypatch, entry):
         options=Options(local_solver="dst_cheby")).solve_gevp(
             g.neumann, method="lanczos"),
      "dst_cheby requires set_grid_geometry"),
-    ("spsd_neumann", lambda g: fromfile.spsd_neumann(g), "spsd_neumann"),
+    ("spsd_neumann", None, None),
 ])
 def test_out_of_scope_branches_raise(gens, what, call, match):
     """An unstructured mesh has no grid boxes, so the DST solves (``fft``,
     ``dst_cheby`` and their Lanczos inner solve) raise ``ValueError``, as
-    the JAX package's builds do; ``spsd_neumann`` (slice 5f) raises
-    ``NotImplementedError``."""
-    with pytest.raises((ValueError, NotImplementedError), match=match):
+    the JAX package's builds do. ``spsd_neumann`` does on this mesh what
+    the JAX package's does: the same local matrices, element for element,
+    and the same warnings (none on this mesh: every edge lies in a
+    subdomain and no diagonal remainder is negative)."""
+    if what == "spsd_neumann":
+        jgen, gen = gens
+        with warnings.catch_warnings(record=True) as jw:
+            warnings.simplefilter("always")
+            theirs = jax_ff.spsd_neumann(jgen)
+        with warnings.catch_warnings(record=True) as mw:
+            warnings.simplefilter("always")
+            mine = fromfile.spsd_neumann(gen)
+        assert [str(w.message) for w in mw] == [str(w.message) for w in jw]
+        assert len(mine) == len(theirs)
+        for a, b in zip(theirs, mine):
+            a, b = a.scipy(expand=True), b.scipy(expand=True)
+            assert np.array_equal(a.indptr, b.indptr)
+            assert np.array_equal(a.indices, b.indices)
+            assert np.array_equal(a.data, b.data)
+        return
+    with pytest.raises(ValueError, match=match):
         call(gens[1])
 
 
